@@ -9,8 +9,9 @@ docs/PARITY.md). With face_forward_normals=True the normal flips toward
 the viewer, the shadow rays start outside, and the wall goes correctly
 dark. Writes docs/renders/face_forward_{off,on}.png.
 
-Usage: python examples/ab_face_forward.py [--size WxH] [--frames N]
-Runs on CPU by default (small frame; deterministic).
+Usage: python examples/ab_face_forward.py [--size WxH] [--frames N] [--gpu]
+Runs on CPU by default (small frame; deterministic); --gpu uses JAX's
+default device.
 """
 
 import os
@@ -18,7 +19,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-if "--tpu" not in sys.argv:
+if "--gpu" not in sys.argv:
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax
 

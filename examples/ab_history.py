@@ -1,8 +1,8 @@
-"""A/B frame-time check for the history-gather mode: banded VMEM-windowed
+"""A/B frame-time check for the history-gather mode: banded windowed
 gathers vs the gather-free shift-select neighborhood (ops/banded.py).
 
-Same-process, same-backend comparison (default device = real TPU under the
-driver). Static camera: the shift mode must be pixel-identical to plain
+Same-process, same-backend comparison on JAX's default device. Static
+camera: the shift mode must be pixel-identical to plain
 gathers, so max|diff| vs the banded run reflects only the banded halo
 rejection (also zero for a static camera).
 """
@@ -51,9 +51,8 @@ def main():
     mats = camera_matrices(cam, w, h)
     combos = [
         ("banded", dict(history_gather_mode="banded")),
-        # shift now includes global-motion compensation (one dynamic roll
-        # by the mean reprojection offset); "banded flat" measured 30x
-        # worse (2026-08-19 session) and was dropped from the A/B.
+        # shift includes global-motion compensation (one dynamic roll by
+        # the mean reprojection offset); "banded flat" is left out.
         ("shift r=1 g", dict(history_gather_mode="shift",
                              history_shift_radius=1)),
         ("shift r=1", dict(history_gather_mode="shift",

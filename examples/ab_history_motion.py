@@ -7,7 +7,7 @@ orbiting camera over the Cornell box, at several orbit speeds, comparing
 
   exact    — plain dynamic gathers (the reference's reprojection semantics,
              temporal_accumulation.slang:42-58; force=False)
-  banded   — VMEM-windowed gathers (halo 16 rows; force=True)
+  banded   — windowed gathers (halo 16 rows; force=True)
   shift rN — gather-free compare/select neighborhood, with/without
              global-motion compensation (force=True)
 
@@ -19,7 +19,7 @@ per (speed, mode):
               index (same RNG seeds, same camera: the diff isolates
               dropped/clamped history, i.e. extra noise + ghosting).
 
-Runs fine on CPU (force=True exercises the TPU execution strategy; values,
+Runs fine on CPU (force=True exercises the forced history ladder; values,
 not speed, are measured here — speed A/Bs live in ab_history.py).
 
 Usage: python examples/ab_history_motion.py [--size 256x144] [--frames 36]

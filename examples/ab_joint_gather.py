@@ -1,7 +1,6 @@
 """A/B: cfg.history_joint_gather on the full 1080p frame, bench-style
-(direct donated render_frame jit, bench camera, one process). Measured
-2026-08-20 on v5e: joint=False 99.84 ms, joint=True 99.17 ms — the knob
-stays default-off (docs/PERFORMANCE.md, docs/PARITY.md)."""
+(direct donated render_frame jit, bench camera, one process). The knob
+is default-off (docs/PARITY.md); not measured on the H100."""
 
 try:
     import _path  # noqa: F401  (repo-root sys.path bootstrap)

@@ -1,8 +1,8 @@
 """Image-quality A/B: spatial_taps "shared" vs "perpixel" (VERDICT #6).
 
 The default spatial-reuse mode draws ONE disc offset per reuse iteration
-shared by all pixels (taps become whole-image shifts — ~50x cheaper than
-per-pixel gathers on TPU), while the reference draws per-pixel random
+shared by all pixels (taps become whole-image shifts instead of
+per-pixel gathers), while the reference draws per-pixel random
 offsets (ray_gen_final.slang:164-167, the "perpixel" mode). This script
 quantifies what the shared-taps approximation costs, on the raw HDR
 estimator output (aux["raw"], pre-TAA/denoise) so post-filters can't mask

@@ -58,8 +58,8 @@ def main():
     v2 = jnp.asarray(verts[faces[:, 2]])
     tris = (v0, v1, v2)
     t = v0.shape[0]
-    print(f"tris={t}  rays={args.rays}  backend={jax.default_backend()}",
-          flush=True)
+    print(f"tris={t}  rays={args.rays}  "
+          f"device={jax.devices()[0].device_kind}", flush=True)
 
     fns = {}
     for name in args.tracers.split(","):

@@ -1,13 +1,13 @@
-"""Incoherent-ray floor analysis for the binned tracer (VERDICT r3
-item 6): is the measured 1.28 s for 2M incoherent rays at 82k tris the
-CULL-RATE floor, or is there kernel headroom left?
+"""Incoherent-ray floor analysis for the binned tracer: is the time for
+2M incoherent rays at 82k tris the CULL-RATE floor, or is there headroom
+left in the tile math?
 
-Methodology: the kernel's runtime is proportional to the number of
-surviving (ray block, cluster) pairs — each pair is one grid step (one
-cluster DMA + one 128x512 Moller-Trumbore tile). This script computes
+Methodology: the round's runtime is proportional to the number of
+surviving (ray block, cluster) pairs — each pair is one work item (one
+128x512 Moller-Trumbore tile). This script computes
 the exact surviving-pair count (the work-list nnz) for camera rays,
 raw incoherent rays, and reorder-sorted incoherent rays on the same
-82k-tri scene the TPU benchmark used, entirely on CPU. If
+82k-tri big-mesh scene, entirely on CPU. If
 
     measured_incoherent_ms / measured_camera_ms  ~=  nnz_ratio
 
@@ -87,7 +87,6 @@ def main():
     reo = results["incoherent_reordered"]["pairs"]
     print(json.dumps({
         "pair_ratio_reordered_vs_camera": round(reo / cam, 3),
-        "measured_ms_ratio_tpu_r3": round(1283.3 / 289.9, 3),
         **results,
     }))
 

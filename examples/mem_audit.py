@@ -4,7 +4,7 @@ Prints XLA's memory_analysis totals, then the largest live buffers from the
 compiled module's buffer-assignment dump (no frame execution — compile
 only, so it runs even for configs that would OOM at run time).
 
-Usage: python examples/mem_audit.py [--small] [--taa jnp|pallas]
+Usage: python examples/mem_audit.py [--small]
 """
 
 try:
@@ -27,12 +27,9 @@ from sunray_tpu.scene import cornell_box
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true")
-    ap.add_argument("--taa", default="jnp")
-    ap.add_argument("--denoise", default="auto")
     args = ap.parse_args()
     w, h = (480, 270) if args.small else (1920, 1080)
-    cfg = RenderConfig(width=w, height=h, lighting="restir",
-                       taa_kernel=args.taa, denoise_kernel=args.denoise)
+    cfg = RenderConfig(width=w, height=h, lighting="restir")
     scene = cornell_box()
     cam = Camera(position=(1.0, 1.0, 3.4), target=(1.0, 1.0, 0.0), fov_y=45.0)
     mats = camera_matrices(cam, w, h)

@@ -88,7 +88,7 @@ def main():
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (script validation; the "
-                         "committed artifact renders on the real TPU)")
+                         "artifact is rendered on the GPU)")
     args = ap.parse_args()
     if args.cpu:
         import jax

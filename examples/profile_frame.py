@@ -1,10 +1,14 @@
-"""Device-profile the default 1080p Cornell frame and print the per-op
-cost table (the docs/PERFORMANCE.md budget-table workflow, scripted).
+"""Device-profile the 1080p Cornell frame on the GPU: per-kernel and
+per-stage device time from one jax.profiler trace.
 
-Usage: python examples/profile_frame.py [--small] [--frames N] [--kw k=v ...]
-  --kw accepts RenderConfig overrides, e.g. --kw history_gather_mode=shift
+Usage: python examples/profile_frame.py [--small] [--frames N]
+           [--out DIR] [--describe] [--kw k=v ...]
+  --out       trace directory (default out/profile)
+  --describe  print the trace's planes and a few device events first
+  --kw        RenderConfig overrides, e.g. --kw denoise_passes=2
 """
 
+import json
 import os
 import sys
 import time
@@ -21,10 +25,14 @@ from sunray_tpu.camera import Camera, camera_matrices
 from sunray_tpu.config import RenderConfig
 from sunray_tpu.render.pipeline import RenderState, render_frame
 from sunray_tpu.scene import cornell_box
+from sunray_tpu.utils.compile_cache import enable_compile_cache
+from sunray_tpu.utils.device import device_record
 from sunray_tpu.utils.profiling import (
-    attribute_rows,
+    device_events,
     device_trace,
-    hlo_source_map,
+    hlo_stage_map,
+    load_trace,
+    stage_table,
     summarize_trace,
 )
 
@@ -44,11 +52,28 @@ def parse_kw(argv):
     return kw
 
 
+def describe(events):
+    """Print the trace's process/thread names and sample device events."""
+    procs = {e["pid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    threads = sorted({(e["pid"], e["args"]["name"]) for e in events
+                      if e.get("ph") == "M" and e.get("name") == "thread_name"})
+    print("planes:", json.dumps(procs))
+    print("lines:", json.dumps([(procs.get(p, p), t) for p, t in threads]))
+    for e in device_events(events)[:12]:
+        print("event:", json.dumps({k: e.get(k) for k in ("name", "dur",
+                                                          "args")})[:400])
+
+
 def main():
     small = "--small" in sys.argv
     n = 10
     if "--frames" in sys.argv:
         n = int(sys.argv[sys.argv.index("--frames") + 1])
+    out = "out/profile"
+    if "--out" in sys.argv:
+        out = sys.argv[sys.argv.index("--out") + 1]
+    enable_compile_cache()
     w, h = (480, 270) if small else (1920, 1080)
     cfg = RenderConfig(width=w, height=h, lighting="restir",
                        **parse_kw(sys.argv))
@@ -58,6 +83,8 @@ def main():
     state = RenderState.create(cfg)
     step = jax.jit(lambda st: render_frame(scene, cfg, st, mats),
                    donate_argnums=(0,))
+    rec = device_record()
+    print(f"device: {json.dumps(rec)}", flush=True)
 
     t0 = time.time()
     for _ in range(3):
@@ -65,32 +92,30 @@ def main():
     jax.block_until_ready(ldr)
     print(f"warmup {time.time() - t0:.1f} s", flush=True)
 
-    log_dir = "/tmp/sunray_profile"
     t0 = time.time()
-    with device_trace(log_dir):
+    with device_trace(out):
         for _ in range(n):
             state, ldr, _ = step(state)
         jax.block_until_ready(ldr)
     dt = (time.time() - t0) / n
-    print(f"steady {dt * 1e3:.1f} ms/frame over {n} frames "
-          f"(finite={bool(np.isfinite(np.asarray(ldr)).all())})", flush=True)
-    rows = summarize_trace(log_dir, top=40, steady_frac=0.8)
+    print(f"traced {dt * 1e3:.3f} ms/frame over {n} frames (profiler on; "
+          f"finite={bool(np.isfinite(np.asarray(ldr)).all())})", flush=True)
+    events = load_trace(out)
+    if "--describe" in sys.argv:
+        describe(events)
+    rows = summarize_trace(out, top=30, steady_frac=1.0, events=events)
     total = sum(r["total_ms"] for r in rows)
-    print(f"device total {total:.1f} ms over trace tail "
-          f"({total / n:.1f} ms/frame if tail == all {n} frames)")
-
-    # Per-file attribution: join the trace rows with the compiled HLO's
-    # op metadata (the round-3 budget-table workflow, now scripted).
-    try:
-        # Lower from a fresh state: `state` was donated through the loop.
-        hlo = step.lower(RenderState.create(cfg)).compile().as_text() or ""
-        srcmap = hlo_source_map(hlo)
-        print(f"\nper-file attribution ({len(srcmap)} mapped instructions):",
-              flush=True)
-        attribute_rows(
-            summarize_trace(log_dir, top=0, steady_frac=0.8), srcmap)
-    except Exception as e:  # pragma: no cover — backend-dependent
-        print(f"per-file attribution unavailable: {e}")
+    xs = device_events(events)
+    span = (max(e["ts"] + e["dur"] for e in xs)
+            - min(e["ts"] for e in xs)) / 1e3
+    print(f"device busy {total / n:.3f} ms/frame (sum of kernel time over "
+          f"{n} frames; device span {span / n:.3f} ms/frame)")
+    hlo = step.lower(RenderState.create(cfg)).compile().as_text() or ""
+    with open(os.path.join(out, "frame_compiled_hlo.txt"), "w") as f:
+        f.write(hlo)                       # for offline kernel->stage joins
+    stages = stage_table(rows, hlo_stage_map(hlo), n)
+    print("stage device ms/frame:", json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}))
 
 
 if __name__ == "__main__":

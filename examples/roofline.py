@@ -1,8 +1,8 @@
 """Print the frame's analytic HBM-traffic floor (utils/roofline.py) and,
-unless --static, join it with a live measured frame time on the current
-backend — the MFU-style evidence table for docs/PERFORMANCE.md.
+unless --static, join it with a live measured frame time on the GPU.
 
 Usage: python examples/roofline.py [--small] [--static] [--measured MS]
+       [--device-kind KIND]   (default: JAX's device_kind of device 0)
 """
 
 try:
@@ -53,7 +53,13 @@ def main():
         measured = (time.time() - t0) / n * 1e3
         rounds = (int(aux["ris_rounds"]), int(aux["final_rounds"]))
 
-    rep = roofline_report(cfg, measured_ms=measured,
+    if "--device-kind" in sys.argv:
+        kind = sys.argv[sys.argv.index("--device-kind") + 1]
+    else:
+        import jax
+
+        kind = jax.devices()[0].device_kind
+    rep = roofline_report(cfg, kind, measured_ms=measured,
                           ris_rounds=rounds[0], final_rounds=rounds[1])
     for s in rep["stages"]:
         print(f"{s['stage']:12s} {s['mbytes']:8.1f} MB  "

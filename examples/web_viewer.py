@@ -1,6 +1,6 @@
 """Browser live viewer (integrations/web_viewer.py): MJPEG fly-cam +
 clickable HUD over HTTP — the reference's examples/window app for a
-headless TPU host (reach it through `ssh -L 8000:127.0.0.1:8000 ...`).
+headless GPU server (reach it through `ssh -L 8000:127.0.0.1:8000 ...`).
 
 Usage:
   python examples/web_viewer.py [--size 640x360] [--port 8000] [--cpu]

@@ -1,11 +1,11 @@
-"""sunray_tpu — a TPU-native differentiable path-tracing framework.
+"""sunray_tpu — a JAX differentiable path-tracing framework, run on NVIDIA GPUs.
 
 A from-scratch JAX / Pallas / pjit re-design of the capabilities of
 kalsifer-742/sunray (a Rust + Vulkan hardware path tracer). The Vulkan
 machinery (render graph, descriptor heap, barriers, command buffers) is
 replaced by XLA's functional dataflow; hardware ray tracing
-(VK_KHR_acceleration_structure) is replaced by an on-chip LBVH built and
-traversed with JAX/Pallas; per-pixel megakernels become wavefront ray-batch
+(VK_KHR_acceleration_structure) is replaced by an LBVH built and
+traversed with JAX, and a Pallas (Triton) brute-force kernel; per-pixel megakernels become wavefront ray-batch
 stages; temporal resources become an explicit, checkpointable state pytree.
 
 Reference parity map (reference file:line cited throughout the modules):

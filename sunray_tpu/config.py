@@ -52,12 +52,12 @@ class RenderConfig:
     lighting: str = "restir"
     # Storage dtype for the ReSTIR p_hat/target-function ATTRIBUTE reads
     # (normal, albedo, view, roughness, metallic — never positions or
-    # distances): "bf16" halves the HBM bytes of the reuse evaluations'
-    # inputs. p_hat is a resampling target function — any consistent
-    # function keeps the estimator valid — so this trades ~0.4%/term
-    # weight noise for bandwidth; quality bounded by the converged-truth
-    # pins (tests/test_quality.py) and the f32-vs-bf16 A/B in
-    # docs/PERFORMANCE.md. "f32" restores exact reference arithmetic.
+    # distances): "bf16" halves the device-memory bytes of the reuse
+    # evaluations' inputs. p_hat is a resampling target function — any
+    # consistent function keeps the estimator valid — so this trades
+    # ~0.4%/term weight noise for bandwidth; quality bounded by the
+    # converged-truth pins (tests/test_quality.py). "f32" (default) is
+    # exact reference arithmetic.
     shading_dtype: str = "f32"
 
     # ReSTIR DI (ray_gen_ris.slang / ray_gen_final.slang)
@@ -85,15 +85,6 @@ class RenderConfig:
     enable_taa: bool = True
     accumulation_factor: float = 0.14
     denoise_passes: int = 4            # a-trous, step widths 1,2,4,8
-    # "auto": Pallas banded a-trous kernel on TPU (ops/pallas_image.py),
-    # jnp pad+slice elsewhere; "pallas"/"jnp" force a path.
-    denoise_kernel: str = "auto"
-    # Same policy for the TAA 3x3 clamp+blend (ops/pallas_image.py).
-    # Default "jnp": after the walk-loop tile-padding fixes the Pallas
-    # kernel fits HBM (examples/mem_audit.py), but the same-session 1080p
-    # A/B is a tie (jnp 263.0 vs pallas 264.0 ms/frame, bit-identical
-    # output — examples/ab_taa.py, v5e) so the simpler path stays default.
-    taa_kernel: str = "jnp"
     exposure: float = 1.0
     tonemap: str = "aces"              # "aces" | "aces_srgb" | "none"
     gamma: float = 2.2
@@ -112,100 +103,67 @@ class RenderConfig:
     # history before the output is meaningful.
     warmup_frames: int = 16
 
-    # Tracing backend. "auto": the Pallas brute kernel up to
-    # brute_force_max_tris (scales linearly, ~40 ms per 1M rays per 1k tris
-    # on v5e, and beats the vmapped BVH stack walk — gather-bound,
-    # ~14 us/ray — up to a few thousand triangles), then the two-level
-    # backend (ops/bvh2.py): per-mesh object-space BLASes built once and
-    # shared across instances + a per-frame in-jit instance TLAS. The
-    # two-level path needs the load-time BlasSet passed as `accel` — the
-    # Renderer manages that; `make_tracer` without an accel falls back to a
-    # unified in-jit LBVH. "bvh" forces the unified world BVH (one tree
-    # over all world triangles, host SAH + in-jit refit); "bvh2"/"brute"
-    # force those paths.
-    # "binned" is the cluster-culled stream tracer (ops/binned_trace.py):
-    # Morton clusters of cluster_k triangles + conservative per-ray-block
-    # culling + a work-list Pallas kernel.
-    # Above the brute crossover, "auto" picks between the two scalable
-    # backends from the scene's shape (measured v5e, 2026-08-19 session +
-    # examples/bench_instances.py):
-    #   - a big mesh dominates (largest BLAS > bvh2_blas_max_tris) or the
-    #     scene is a single instance -> "binned": per-ray stack walks
-    #     collapse on big trees (82k tris: binned 358 ms vs unified-BVH
-    #     9274 ms vs brute 6732 ms per 2M coherent rays; binned also wins
-    #     incoherent bounce rays 4.9 s vs 6.8 s brute);
-    #   - many instances of small shared meshes -> "bvh2": shallow BLAS
-    #     walks + per-frame in-jit TLAS (64x512-tri orbit: 234 ms vs
-    #     44 s unified).
+    # Tracing backend. "auto": brute force (every ray against every
+    # triangle) up to brute_force_max_tris, then a scalable backend
+    # chosen from the scene's shape by Renderer._auto_big_mode: the
+    # two-level backend (ops/bvh2.py: per-mesh object-space BLASes built
+    # once and shared across instances + a per-frame in-jit instance TLAS)
+    # when >= 2 instances all have BLASes <= bvh2_blas_max_tris, else the
+    # binned cluster-culled stream tracer (ops/binned_trace.py: Morton
+    # clusters of cluster_k triangles + conservative per-ray-block
+    # culling). Both need the load-time structure passed as `accel` — the
+    # Renderer manages that; `make_tracer` without an accel falls back to
+    # a unified in-jit LBVH. "bvh" forces the unified world BVH (one tree
+    # over all world triangles, host SAH + in-jit refit);
+    # "bvh2"/"binned"/"brute" force those paths. The crossovers were
+    # tuned on an earlier accelerator and are not yet re-derived on the
+    # H100 (ROADMAP).
     tracer: str = "auto"       # "auto" | "brute" | "bvh" | "bvh2" | "binned"
-    # Occlusion-kernel arithmetic on the brute Pallas path: "mt" =
-    # Moller-Trumbore on the VPU (ops/pallas_trace._occluded_kernel);
-    # "woop" = per-triangle Woop affine transforms as one (6T, 8) x (8, B)
-    # MXU matmul + a division-free VPU epilogue (~25 vs ~56 elementwise
-    # ops per tri-ray; trace_occluded_woop). Same intersection predicate
-    # up to float factorization noise (grazing-edge flips possible;
-    # agreement pinned in tests). Measured A/B in docs/PERFORMANCE.md.
-    trace_impl: str = "mt"
-    brute_force_max_tris: int = 4096
+    brute_force_max_tris: int = 512
     bvh_leaf_size: int = 4
     cluster_k: int = 128               # triangles per binned-tracer cluster
     # Largest per-mesh BLAS the auto policy will hand to the two-level
     # stack-walk backend; bigger meshes go to the binned stream tracer.
     bvh2_blas_max_tris: int = 8192
-    # Rays per trace block (lax.map step). Too small serializes the frame
-    # into thousands of micro-kernels (observed 4.7 s/frame at 4096); large
-    # blocks amortize launch overhead while keeping (B, T) intermediates
-    # bounded.
+    # Rays per trace block of the jnp brute path (lax.map step). Too small
+    # serializes the frame into thousands of micro-kernels; large blocks
+    # amortize launch overhead while keeping (B, T) intermediates bounded.
     trace_block_rays: int = 1 << 18
 
     # Spatial-reuse neighbor taps:
     #   "shared"   — one disc offset per reuse iteration, shared by all
     #                pixels (drawn from a frame-seeded scalar stream). Taps
-    #                become whole-image shifts, which on TPU are ~50x
-    #                cheaper than the per-pixel random gathers (XLA's
-    #                gather needs the whole table VMEM-resident to
-    #                vectorize; reservoir tables don't fit).
+    #                become whole-image shifts instead of per-pixel random
+    #                gathers (chosen for an earlier accelerator's slow
+    #                gathers; the H100 cost of "perpixel" is not measured
+    #                yet — ROADMAP).
     #   "perpixel" — the reference's per-pixel random disc offsets
     #                (ray_gen_final.slang:164-167), exact parity, slower.
     spatial_taps: str = "shared"
 
     # Banded history gathers (ops/banded.py): the temporal-reuse and TAA
     # history reads gather from a [band +/- halo]-row window around each
-    # destination row band so every gather's table fits VMEM and
-    # vectorizes (TPU-only; plain gathers elsewhere). History farther than
-    # `halo` rows vertically is rejected exactly like off-screen history —
-    # one lost frame of temporal reuse under very fast vertical pans.
-    # band=0 disables (always full-table gathers).
+    # destination row band. Only taken when history_gather_force=True
+    # (plain full-table gathers otherwise). History farther than `halo`
+    # rows vertically is rejected exactly like off-screen history. Also the
+    # temporal halo of the SPMD row-sharded frame (parallel/spmd.py).
     history_gather_band: int = 16
     history_gather_halo: int = 16
     # "rows": gather rows of the packed (P, C) history table; "lanes":
-    # gather on the transposed (C, P) table so results keep the frame's
-    # P-minor layout (avoids relayout copies around row gathers).
-    # WARNING: "lanes" is experimental — correct (unit-tested) but at
-    # 1080p the TPU compile did not finish within 9 minutes (pathological
-    # layout assignment); keep "rows" until toolchains improve. "flat":
-    # 1-D window slices + contiguous-C gathers — removes the 10.7x
-    # tile-padded (win, C) window temps (45 MB each at 1080p,
-    # examples/mem_audit.py); A/B against "rows" on real TPU before
-    # defaulting.
+    # gather on the transposed (C, P) table; "flat": 1-D window slices +
+    # contiguous-C gathers; "out_t": (C, P) output. Forced banded path
+    # only.
     history_gather_layout: str = "rows"
-    # "banded": VMEM-windowed dynamic gathers (above). "shift": no gather
-    # at all — one compare+select per offset in a (2r+1)^2 neighborhood
-    # over flat-rolled tables (ops/banded.shift_row_gather), with
-    # global-motion compensation (one dynamic roll by the mean
-    # reprojection offset) so arbitrary-speed pans/yaws keep history;
-    # per-pixel deviation from the mean motion beyond `shift_radius` px
-    # (strong rotation falloff, parallax) is rejected like off-screen
-    # history. Static cameras are BIT-identical to banded/plain gathers
-    # and 8.5% faster at 1080p (242.8 -> 222.2 ms same-session,
-    # 2026-08-19; the selection pipeline runs on an int32-bitcast view,
-    # see shift_row_gather's denormal note). "auto" (default): one
-    # lax.cond per history read on the measured fraction of lanes whose
-    # residual motion fits the shift radius — static/panning frames take
-    # the fast shift branch, rotation/parallax beyond the radius takes
-    # banded, so the default no longer depends on the benchmark camera
-    # being static (measured mode divergences under orbit/yaw/truck
-    # motion: examples/ab_history_motion.py, docs/PARITY.md).
+    # Forced-path strategy (history_gather_force=True): "banded" =
+    # windowed dynamic gathers (above); "shift" = no gather at all — one
+    # compare+select per offset in a (2r+1)^2 neighborhood over
+    # flat-rolled tables (ops/banded.shift_row_gather), with global-motion
+    # compensation (one dynamic roll by the mean reprojection offset);
+    # per-pixel deviation beyond `shift_radius` px is rejected like
+    # off-screen history. Static cameras are bit-identical to plain
+    # gathers. "auto": one lax.cond per history read on the fraction of
+    # lanes whose residual motion fits the shift radius (shift branch) vs
+    # banded (docs/PARITY.md).
     history_gather_mode: str = "auto"
     history_shift_radius: int = 1
     # "auto" falls back to banded when the predicted shift-history
@@ -217,26 +175,10 @@ class RenderConfig:
     # arbitrary-speed pans keep history; residual deviation beyond the
     # radius is still rejected.
     history_shift_global: bool = True
-    # Backend-gate override for the banded/shift history reads: None (the
-    # default) keeps the TPU-only gate (plain gathers on CPU — exact and
-    # fast there); True forces the TPU execution strategy on any backend so
-    # its history-validity behavior can be measured/tested on CPU
-    # (examples/ab_history_motion.py); False forces plain gathers.
+    # True takes the banded/shift history-read ladder above; None/False
+    # (default) read history with plain gathers. The ladder's H100 cost is
+    # not measured yet (ROADMAP design 3.2).
     history_gather_force: "bool | None" = None
-    # Pallas window-select fast path for the history ladder's shift
-    # branches (ops/pallas_window.py): the zero-residual / 4-tap / box
-    # selects run as ONE kernel pass over the transposed (C, P) history
-    # table (DMA window + in-VMEM dynamic lane rotates) instead of the
-    # jnp bitcast+roll+extension+select chain. MEASURED SLOWER at 1080p
-    # (96.6 -> 99.1 ms same-process, 2026-08-21): the kernels themselves
-    # beat the jnp conds (~0.6-1.4 vs 1.8-2.3 ms) but the (P,3)->(3,P)
-    # table-build transposes + C->8-row padding eat more than the win.
-    # Default "off"; "auto" enables on TPU forward frames (bit-identical
-    # on selected lanes — exactness pinned in tests/test_banded.py). The
-    # structural fix — reservoir state stored component-SoA so the table
-    # build is relayout-free — is ROADMAP material.
-    history_select_kernel: str = "off"
-
     # Joint DI+GI temporal-history gather: one shared jittered
     # reprojection + ONE packed (P, C_di+C_gi) banded row gather instead
     # of two independent gathers with independent jitters (the reference

@@ -2,7 +2,7 @@
 
 The reference integrates via a winit window fly-cam app
 (examples/window/main.rs) and a Bevy engine plugin
-(src/bevy_integration/plugin.rs). A TPU host is headless, so the
+(src/bevy_integration/plugin.rs). A GPU server is headless, so the
 integration points here are:
 
 - `EngineAdapter` (engine.py): the per-tick extract contract the Bevy

@@ -1,7 +1,7 @@
 """HTTP live viewer — the interactive `window` example / swapchain analog.
 
 The reference presents through a winit window + Vulkan swapchain
-(examples/window/main.rs, image/swapchain.rs). A TPU host has no display
+(examples/window/main.rs, image/swapchain.rs). A GPU server has no display
 engine, so "present" becomes streaming the latest LDR frame to a browser:
 
 - `GET /`          the viewer page (canvas + pointer-lock fly-cam controls)

@@ -1,7 +1,6 @@
 """Browser-reachable live viewer: MJPEG stream + interactive HUD widgets.
 
-The last L7 gap that is buildable on a headless TPU host (VERDICT r4
-item 7): the reference's windowed fly-cam app (examples/window/main.rs:
+The L7 piece that is buildable on a headless GPU server: the reference's windowed fly-cam app (examples/window/main.rs:
 222-249 + image/swapchain.rs present loop) becomes an HTTP server any
 browser can reach through an ssh port-forward:
 

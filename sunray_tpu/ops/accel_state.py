@@ -11,7 +11,7 @@ Faithful port of the reference's shared AsState machine
     (mod.rs:75), and after FRAMES_TO_SETTLE=16 quiet frames a quality
     rebuild "settles" the structure (mod.rs:78).
 
-On TPU the analog decisions are: re-sort Morton topology (rebuild) vs reuse
+Here the analog decisions are: re-sort Morton topology (rebuild) vs reuse
 cached topology and recompute AABBs only (refit). A full LBVH rebuild here
 is a sort — far cheaper than a GPU BVH build — but refit still skips the
 sort + Karras searches, so the heuristic remains worthwhile for dynamic

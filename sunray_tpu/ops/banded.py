@@ -1,26 +1,26 @@
-"""Banded (VMEM-sized) row gathers for screen-space history reads.
+"""Banded and shift-select row gathers for screen-space history reads.
 
-XLA's TPU gather emitter vectorizes a dynamic gather only when it can stage
-the table in the op's scoped VMEM (~16 MB/core); past that it serializes at
-~25 ns/scalar plus a large per-op charge (docs/PERFORMANCE.md). The two
-remaining big gathers in the frame — ReSTIR temporal-reuse history and the
+The two big gathers in the frame — ReSTIR temporal-reuse history and the
 TAA bilinear history fetch — read a full-resolution history image at
-reprojected pixel positions, so their tables are tens of MB and serialize.
+reprojected pixel positions. This module holds alternatives to the plain
+`table[idx]` gather, written for an earlier accelerator whose dynamic
+gathers serialized on big tables:
 
-The screen-space structure saves us: a reprojected read lands *near* its
+The screen-space structure allows it: a reprojected read lands *near* its
 destination pixel (distance = per-frame motion in pixels). Splitting the
 destination image into horizontal bands and gathering each band only from a
 [band - halo, band + halo] window of source rows keeps every per-op table a
-few MB (VMEM-cacheable) while staying exact for any vertical motion up to
-`halo` pixels. Reads outside the window are reported via an `in_band` mask
-so callers fall back the way the reference already handles invalid history
-(reject the reservoir / use the current frame's color) — a fast vertical
-pan simply loses one frame of temporal reuse on TPU, which the confidence
-clamps largely do anyway. Horizontal motion is unrestricted (windows span
-full rows).
+few MB while staying exact for any vertical motion up to `halo` pixels.
+Reads outside the window are reported via an `in_band` mask so callers fall
+back the way the reference already handles invalid history (reject the
+reservoir / use the current frame's color). Horizontal motion is
+unrestricted (windows span full rows). shift_row_gather replaces the
+gather with compare+selects over a small neighborhood of rolls.
 
-The reference has no analog (hardware texture units make gathers free);
-this is a TPU-only execution strategy, documented in docs/PARITY.md.
+Every entry point takes the path only with force=True
+(cfg.history_gather_force); otherwise it is the plain gather. Whether any
+of it pays on the H100 is not measured yet (ROADMAP design 3.2). The
+reference has no analog; documented in docs/PARITY.md.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import jax.numpy as jnp
 
 # Window sizing: the gathered window is (band + 2*halo) rows x W x C floats.
 # At 1080p with C=17 (GI reservoir), band=halo=16 gives a 48-row window
-# = 6.3 MB — inside VMEM with room for the index/result buffers.
+# = 6.3 MB per gather.
 DEFAULT_BAND = 16
 DEFAULT_HALO = 16
 
@@ -46,19 +46,18 @@ def banded_row_gather(table, idx, width, band=DEFAULT_BAND, halo=DEFAULT_HALO,
     farther than `halo` rows from the destination band get in_band=False
     and an arbitrary (clamped) row — callers must mask on in_band.
 
-    force: True/False overrides the backend gate (tests); default is the
-    TPU-only gate (CPU gathers are fine and keep goldens bit-exact).
+    force: True takes the banded path; None/False is the plain gather.
 
     layout: "rows" gathers rows of the (P, C) table; "lanes" runs the
-    same gather on the transposed (C, P) table (columns along the TPU
-    lane dimension) — the result and every unpacked field then keep the
+    same gather on the transposed (C, P) table (columns along the minor
+    dimension) — the result and every unpacked field then keep the
     P-minor layout the rest of the frame uses, avoiding the
     {1,0}<->{0,1} relayout copies XLA otherwise inserts around row
-    gathers (~1.4 ms per (P,4) conversion, measured). "out_t" keeps the
-    row-major table but asks lax.gather for a transposed (C, P) result
-    via offset_dims=(0,) — same goal as "lanes" (P-minor output, no
-    relayout) without transposing the table (which is what blew the
-    1080p compile past 9 minutes). With "out_t" the result is (C, P).
+    gathers. "out_t" keeps the row-major table but asks lax.gather for a
+    transposed (C, P) result via offset_dims=(0,) — same goal as "lanes"
+    (P-minor output, no relayout) without transposing the table (which
+    made the 1080p compile take many minutes). With "out_t" the result
+    is (C, P).
     "flat" slices each band's window from the FLATTENED 1-D table and
     gathers C contiguous elements per lane — the per-band window temp is
     then 1-D and tile-padding-free (the 2-D (win, C) windows tile-pad
@@ -68,7 +67,7 @@ def banded_row_gather(table, idx, width, band=DEFAULT_BAND, halo=DEFAULT_HALO,
     """
     p, c = table.shape
     h = p // width
-    use = force if force is not None else (jax.default_backend() == "tpu")
+    use = bool(force)
     if not use or h <= band + 2 * halo:
         rows = table[idx]
         if layout == "out_t":
@@ -145,20 +144,19 @@ def auto_row_gather(table, idx, width, band=DEFAULT_BAND, halo=DEFAULT_HALO,
                     global_motion=True, valid=None, layout="rows"):
     """Per-frame runtime selection between the shift-select neighborhood
     (fast; drops history where per-pixel deviation from the mean motion
-    exceeds `radius`) and the banded VMEM-windowed gather (exact up to the
+    exceeds `radius`) and the banded windowed gather (exact up to the
     16-row halo). One `lax.cond` on a measured scalar: the fraction of
     valid lanes whose residual offset fits the shift radius. Static or
-    uniformly-panning cameras take the shift branch every frame (8.5%
-    faster at 1080p); rotation/parallax beyond the radius flips to banded
-    and keeps full reprojection semantics — the motion-robust default the
-    round-2 VERDICT asked for (measured divergences:
+    uniformly-panning cameras take the shift branch every frame;
+    rotation/parallax beyond the radius flips to banded and keeps full
+    reprojection semantics (measured divergences:
     examples/ab_history_motion.py, docs/PARITY.md).
 
     Only the taken branch executes per frame (scalar-predicate lax.cond);
     both compile into the one frame program.
     """
     p, c = table.shape
-    use = force if force is not None else (jax.default_backend() == "tpu")
+    use = bool(force)
     if not use:
         return table[idx], jnp.ones((p,), bool)
     dst = jnp.arange(p, dtype=idx.dtype)
@@ -184,8 +182,7 @@ def auto_row_gather(table, idx, width, band=DEFAULT_BAND, halo=DEFAULT_HALO,
         # (every valid lane's offset equals the rounded mean offset) needs
         # no neighborhood at all — one global roll of the table replaces
         # the (2r+1)^2 select-chain, cutting ~9 full-table read passes per
-        # history read to ~1 (device profile: the three history conds were
-        # 2.7 ms each at 1080p static-camera; ops/banded.py round-4).
+        # history read to ~1.
         # Residual-nonzero lanes simply lose one frame of history (ok
         # False), identical semantics to the shift path's rejection.
         fits0 = ((ry == 0) & (rx == 0)).astype(jnp.float32)
@@ -260,109 +257,6 @@ def _auto_ladder_rest(table, idx, width, band, halo, radius, min_retention,
         )
 
 
-def _window_spec(idx, width, valid, global_motion):
-    """Shared motion statistics for the fast-path ladders: per-lane source
-    offsets, the rounded mean motion (gy, gx), and signed residuals."""
-    p = idx.shape[0]
-    dst = jnp.arange(p, dtype=idx.dtype)
-    dy = idx // width - dst // width
-    dx = idx % width - dst % width
-    wts = (
-        valid.astype(jnp.float32) if valid is not None
-        else jnp.ones((p,), jnp.float32)
-    )
-    den = jnp.maximum(jnp.sum(wts), 1.0)
-    if global_motion:
-        gy = jnp.round(jnp.sum(dy.astype(jnp.float32) * wts) / den)
-        gx = jnp.round(jnp.sum(dx.astype(jnp.float32) * wts) / den)
-    else:
-        gy = jnp.float32(0.0)
-        gx = jnp.float32(0.0)
-    dyr = dy.astype(jnp.float32) - gy
-    dxr = dx.astype(jnp.float32) - gx
-    return dy, dx, gy, gx, dyr, dxr, wts, den
-
-
-def _kernel_window_gather(table_pad_t, p, width, window, gy, gx, dyr, dxr):
-    """One ladder branch on the TRANSPOSED padded (C, P) table via the
-    Pallas window-select kernel (ops/pallas_window.py): key/ok from the
-    signed residuals, taps enumerated in shift_row_gather's (sy, sx) order
-    so selected lanes are bit-identical to the jnp chain."""
-    from sunray_tpu.ops.pallas_window import window_select_t
-
-    ry_lo, ry_hi, rx_lo, rx_hi = window
-    nx = rx_hi - rx_lo + 1
-    ok = (dyr >= ry_lo) & (dyr <= ry_hi) & (dxr >= rx_lo) & (dxr <= rx_hi)
-    key = jnp.where(
-        ok,
-        (dyr - ry_lo).astype(jnp.int32) * nx + (dxr - rx_lo).astype(jnp.int32),
-        -1,
-    )
-    taps = [sy * width + sx
-            for sy in range(ry_lo, ry_hi + 1)
-            for sx in range(rx_lo, rx_hi + 1)]
-    g = (gy.astype(jnp.int32) * width + gx.astype(jnp.int32))
-    rows_t = window_select_t(table_pad_t, key, g, taps, p)
-    return rows_t, ok
-
-
-def auto_row_gather_t(table_pad_t, idx, width, band=DEFAULT_BAND,
-                      halo=DEFAULT_HALO, radius=1, min_retention=0.98,
-                      valid=None):
-    """auto_row_gather on a TRANSPOSED, zero-PADDED (C, pad+P+pad) float32
-    table ((pl, pr) = pallas_window.pads(P) lanes around it — the caller
-    adds it in the same concatenate that builds the table), with the three
-    fast branches (zero-residual / 4-tap jitter window / radius-r box) run
-    by the Pallas window-select kernel — ~1 table pass each instead of the
-    jnp chain's ~9-12 (pallas_window.py docstring) — and the banded
-    VMEM-windowed gather as the exact fallback (unpadding + transposing
-    in-branch; only executed on fast-rotation/parallax frames, or when the
-    global motion exceeds the kernel's max_shift bound). Returns
-    ((C, P) rows_t, ok). TPU-only callers gate on backend."""
-    from sunray_tpu.ops.pallas_window import max_shift, pads
-
-    c, p_pad = table_pad_t.shape
-    p = idx.shape[0]
-    pad_l, pad_r = pads(p)
-    assert p_pad == pad_l + pad_r + p, (p_pad, pad_l, pad_r, p)
-    dy, dx, gy, gx, dyr, dxr, wts, den = _window_spec(
-        idx, width, valid, True
-    )
-    ret = lambda fits: jnp.sum(fits.astype(jnp.float32) * wts) / den
-    retention0 = ret((dyr == 0) & (dxr == 0))
-    retention4 = ret((dyr >= -1) & (dyr <= 0) & (dxr >= -1) & (dxr <= 0))
-    retention_r = ret((jnp.abs(dyr) <= radius) & (jnp.abs(dxr) <= radius))
-    g_abs = jnp.abs(gy * width + gx)
-    span_max = 2 * (radius * width + radius)
-    g_ok = g_abs <= max_shift(p, span_max)
-
-    def fast(window):
-        return lambda: _kernel_window_gather(
-            table_pad_t, p, width, window, gy, gx, dyr, dxr
-        )
-
-    def banded():
-        rows, okb = banded_row_gather(
-            table_pad_t[:, pad_l:pad_l + p].T, idx, width, band, halo,
-            force=True, layout="rows"
-        )
-        return rows.T, okb
-
-    return jax.lax.cond(
-        g_ok & (retention0 >= min_retention),
-        fast((0, 0, 0, 0)),
-        lambda: jax.lax.cond(
-            g_ok & (retention4 >= min_retention),
-            fast((-1, 0, -1, 0)),
-            lambda: jax.lax.cond(
-                g_ok & (retention_r >= min_retention),
-                fast((-radius, radius, -radius, radius)),
-                banded,
-            ),
-        ),
-    )
-
-
 def shift_row_gather(table, idx, width, radius_y, radius_x, force=None,
                      global_motion=True, valid=None, window=None):
     """Row gather restricted to a (2ry+1) x (2rx+1) screen-space
@@ -399,8 +293,8 @@ def shift_row_gather(table, idx, width, radius_y, radius_x, force=None,
     global-motion roll (selection requires the full 2-D offset match).
 
     Denormal hazard: callers pack int32 fields bitcast to f32
-    (restir._gather_packed), and small ints are DENORMAL floats — TPU
-    float datapaths flush them to zero. Static rolls are pure lane
+    (restir._gather_packed), and small ints are DENORMAL floats — float
+    datapaths may flush them to zero. Static rolls are pure lane
     rotations, but the global-motion dynamic roll fuses through float
     registers and corrupted bitcast light/triangle ids (measured:
     light_idx zeroed on 57k/130k lanes at 480x270). The whole
@@ -409,7 +303,7 @@ def shift_row_gather(table, idx, width, radius_y, radius_x, force=None,
     end.
     """
     p, c = table.shape
-    use = force if force is not None else (jax.default_backend() == "tpu")
+    use = bool(force)
     if not use:
         return table[idx], jnp.ones((p,), bool)
     is_float = jnp.issubdtype(table.dtype, jnp.floating)
@@ -445,8 +339,7 @@ def shift_row_gather(table, idx, width, radius_y, radius_x, force=None,
     nx = rx_hi - rx_lo + 1
     key = jnp.where(ok, (dy - ry_lo) * nx + (dx - rx_lo), -1)
     # One wrap-padded extension + one STATIC slice per window offset.
-    # jnp.roll materializes a full-table HBM copy per offset (measured:
-    # nine ~1.8 ms copies per call at 1080p in the device profile); a
+    # jnp.roll materializes a full-table copy per offset; a
     # static slice of the shared extension is a zero-copy view that XLA
     # fuses straight into the select chain, so the whole neighborhood
     # costs ONE extra table copy (the extension) regardless of radius.

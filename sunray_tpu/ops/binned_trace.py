@@ -1,14 +1,12 @@
-"""Binned (cluster-culled) ray tracing — the TPU answer to BVH traversal.
+"""Binned (cluster-culled) ray tracing for big single meshes.
 
-Why not a per-ray BVH walk: the vmapped stack walk is gather-bound
-(~7-14 us/ray — two dynamic row gathers per iteration, docs/PERFORMANCE.md)
-and a Pallas walk is blocked on Mosaic's per-lane dynamic VMEM indexing.
-Why not plain brute force: linear in triangles (~40 ms per 1M rays per 1k
-tris), hopeless past a few thousand.
+Why not a per-ray BVH walk: the vmapped stack walk is gather-bound (two
+dynamic row gathers per iteration). Why not plain brute force: linear in
+triangles, hopeless past a few thousand.
 
-This module keeps the brute kernel's VPU-bound inner loop but only runs it
+This module keeps brute force's dense Moller-Trumbore tile but only runs it
 where geometry can actually be hit (the ray-stream / binning literature,
-restructured for XLA's static shapes):
+restructured for XLA's static shapes), all in plain jnp/lax:
 
 1. Triangles are packed into fixed-size spatial CLUSTERS (Morton order,
    K tris each) at load time — the "leaves" of a one-level hierarchy.
@@ -17,43 +15,35 @@ restructured for XLA's static shapes):
    every per-ray slab test of the block at once from the block's (origin,
    direction) box, so it can only over-include (unit-tested property).
 3. Surviving pairs are stream-compacted into a flat work list (one sort),
-   sorted block-major, and consumed by a Pallas kernel whose BlockSpec
-   index_maps are driven by scalar-prefetched (block, cluster) ids — each
-   grid step DMAs exactly one ray block + one triangle cluster into VMEM
-   (the paged-attention pattern) and runs the Moller-Trumbore tile.
-   Consecutive steps that revisit the same ray block accumulate a running
-   closest hit in VMEM; an aliased zero-initialized "touched" plane marks
-   blocks that received any work (unvisited output blocks are garbage).
+   sorted block-major. Each round gathers every work item's ray block and
+   triangle cluster, runs the Moller-Trumbore tile, and segment-reduces
+   the per-item results into their ray blocks (min-t for closest hit, OR
+   for occlusion); a "touched" plane marks blocks that received work.
 4. The work list is consumed in fixed-size ROUNDS inside a while_loop
    (static shapes, dynamic trip count), merging per-round results — so
    capacity never truncates work, and typical traces take one round.
 
-Expected cost vs brute: (hit pairs / total pairs) of the brute kernel's
+Expected cost vs brute: (hit pairs / total pairs) of the brute tile's
 compute plus a ~log^2 sort of NB*C bits. Reference analog: the RT
-hardware's AS traversal (accel.rs / tlas.rs do the same job on the GPU).
+hardware's AS traversal (accel.rs / tlas.rs). A traversal designed for the
+GPU is ROADMAP Reach (a).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from sunray_tpu.ops import intersect
 
-CLUSTER_K = 128        # triangles per cluster (lane width of the pack)
-BLOCK_RAYS = 512       # rays per block (lanes in the kernel tile)
+CLUSTER_K = 128        # triangles per cluster
+BLOCK_RAYS = 512       # rays per block
 WORK_CHUNK = 4096      # (block, cluster) pairs consumed per round
+TILE_ELEMS = 1 << 20   # (item x tri x ray) elements per lax.map step
 DET_EPS = intersect.DET_EPS
-
-
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
 
 
 class ClusterSet(NamedTuple):
@@ -64,7 +54,7 @@ class ClusterSet(NamedTuple):
         shape); geometry is refit in-jit per frame (refit_cluster_set).
     tri_pack: (C, 16, K) f32 — SoA rows per cluster:
         0-2 v0.xyz, 3-5 v1.xyz, 6-8 v2.xyz, 9 tri id (bitcast i32,
-        -1 padding), 10-15 zero padding (sublane alignment).
+        -1 padding), 10-15 zero padding.
     aabb_lo/aabb_hi: (C, 3) cluster bounds (padding tris anchored inside).
     """
 
@@ -137,9 +127,9 @@ def _pack_clusters(v0, v1, v2, ids, c, k):
     cols = [rows[:, a] for a in range(9)]
     comp = [x.reshape(c, k) for x in cols]                 # 9 x (C, K)
     # DENORMAL-SAFE pack assembly: small int ids bitcast to f32 are
-    # denormals, and in-jit float assembly can flush them to zero on TPU
-    # (the class that silently blacked out the bvh2 TLAS, round 5) —
-    # stack everything as int32 bit patterns and reinterpret ONCE.
+    # denormals, and in-jit float assembly may flush them to zero (the
+    # class that silently blacked out the bvh2 TLAS) — stack everything as
+    # int32 bit patterns and reinterpret ONCE.
     def f2i(x):
         return jax.lax.bitcast_convert_type(x, jnp.int32)
 
@@ -234,33 +224,29 @@ def _interval_cull(o_t, d_t, tn, tx, aabb_lo, aabb_hi, nb, rb):
 
 
 # ---------------------------------------------------------------------------
-# Work-list kernel
+# Work-list rounds
 # ---------------------------------------------------------------------------
 #
-# One grid step = one (ray block, cluster) pair: the BlockSpec index maps
-# read scalar-prefetched ids, so the pipeline DMAs exactly the culled
-# pairs. Work is sorted (block, cluster-entry-t): consecutive steps on the
-# same ray block accumulate in VMEM, and near-to-far order lets the
-# closest kernel skip a cluster once every live ray's best hit is closer
-# than the cluster's entry lower bound (early termination). The any-hit
-# kernel short-circuits once every ray is occluded.
+# One work item = one (ray block, cluster) pair. Work is sorted block-major
+# (then near-to-far within a block). A round evaluates `work` items in
+# lax.map steps of TILE_ELEMS elements and folds each item's per-ray result
+# into its ray block with a segment reduction; ties between items go to the
+# earlier item, as a sequential walk of the list would resolve them.
 
 
-def _ray_tile_hits(rows, o_ref, d_ref, tn_ref, tx_ref, ex_ref):
-    """Moller-Trumbore of one (16, K) cluster row block against (lanes)
-    rays: returns (tt(K,RB) inf-where-invalid, uu, vv, valid, ids(K,1))."""
-
-    v0x, v0y, v0z = rows[0, :], rows[1, :], rows[2, :]
-    e1x = (rows[3, :] - v0x)[:, None]
-    e1y = (rows[4, :] - v0y)[:, None]
-    e1z = (rows[5, :] - v0z)[:, None]
-    e2x = (rows[6, :] - v0x)[:, None]
-    e2y = (rows[7, :] - v0y)[:, None]
-    e2z = (rows[8, :] - v0z)[:, None]
-    ids = jax.lax.bitcast_convert_type(rows[9, :], jnp.int32)[:, None]
-
-    ox, oy, oz = o_ref[0, :][None, :], o_ref[1, :][None, :], o_ref[2, :][None, :]
-    dx, dy, dz = d_ref[0, :][None, :], d_ref[1, :][None, :], d_ref[2, :][None, :]
+def _tile_hits(rows, o, d, tn, tx, ex):
+    """Moller-Trumbore of I items' triangle tiles against their ray blocks.
+    rows: (I, 16, K) cluster pack rows; o, d: (I, 3, RB); tn, tx, ex:
+    (I, RB). Returns (tt (I, K, RB) inf-where-invalid, uu, vv, valid,
+    ids (I, K, 1))."""
+    v0x, v0y, v0z = (rows[:, a, :, None] for a in range(3))
+    e1x, e1y, e1z = (rows[:, 3 + a, :, None] - rows[:, a, :, None]
+                     for a in range(3))
+    e2x, e2y, e2z = (rows[:, 6 + a, :, None] - rows[:, a, :, None]
+                     for a in range(3))
+    ids = jax.lax.bitcast_convert_type(rows[:, 9], jnp.int32)[:, :, None]
+    ox, oy, oz = (o[:, a, None, :] for a in range(3))
+    dx, dy, dz = (d[:, a, None, :] for a in range(3))
 
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
@@ -269,9 +255,9 @@ def _ray_tile_hits(rows, o_ref, d_ref, tn_ref, tx_ref, ex_ref):
     det_ok = jnp.abs(det) > DET_EPS
     inv_det = jnp.where(det_ok, 1.0 / jnp.where(det_ok, det, 1.0), 0.0)
 
-    tvx = ox - v0x[:, None]
-    tvy = oy - v0y[:, None]
-    tvz = oz - v0z[:, None]
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
     uu = (tvx * px + tvy * py + tvz * pz) * inv_det
     qx = tvy * e1z - tvz * e1y
     qy = tvz * e1x - tvx * e1z
@@ -282,122 +268,89 @@ def _ray_tile_hits(rows, o_ref, d_ref, tn_ref, tx_ref, ex_ref):
     valid = (
         det_ok
         & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-        & (tt >= tn_ref[0, :][None, :]) & (tt <= tx_ref[0, :][None, :])
+        & (tt >= tn[:, None, :]) & (tt <= tx[:, None, :])
         & (ids >= 0)
-        & (ids != ex_ref[0, :][None, :])
+        & (ids != ex[:, None, :])
     )
     return jnp.where(valid, tt, jnp.inf), uu, vv, valid, ids
 
 
-def _closest_kernel(bids_ref, cids_ref, ents_ref,
-                    o_ref, d_ref, tn_ref, tx_ref, ex_ref, tri_ref, _alias_ref,
-                    t_out, tri_out, u_out, v_out, touched_out):
-    w = pl.program_id(0)
-    new_block = jnp.logical_or(
-        w == 0, bids_ref[jnp.maximum(w - 1, 0)] != bids_ref[w]
-    )
-
-    @pl.when(new_block)
-    def _():
-        # Padded lanes (tmax == -inf) start at -inf so a fully-resolved
-        # block can still short-circuit past them.
-        pad_lane = tx_ref[0, :] == -jnp.inf
-        t_out[0, :] = jnp.where(pad_lane, -jnp.inf, jnp.inf)
-        tri_out[0, :] = jnp.full_like(tri_out[0, :], -1)
-        u_out[0, :] = jnp.zeros_like(u_out[0, :])
-        v_out[0, :] = jnp.zeros_like(v_out[0, :])
-        touched_out[0, :] = jnp.ones_like(touched_out[0, :])
-
-    # Early termination: the work list is near-to-far per block, and
-    # ents_ref[w] lower-bounds every ray's entry t into this cluster.
-    live = jnp.logical_not(jnp.all(t_out[0, :] < ents_ref[w]))
-
-    @pl.when(live)
-    def _():
-        tt, uu, vv, valid, ids = _ray_tile_hits(
-            tri_ref[0], o_ref, d_ref, tn_ref, tx_ref, ex_ref
-        )
-        k = jnp.argmin(tt, axis=0)
-        sel = jax.lax.broadcasted_iota(jnp.int32, tt.shape, 0) == k[None, :]
-        tile_t = jnp.min(tt, axis=0)
-        tile_tri = jnp.max(
-            jnp.where(sel & valid, jnp.broadcast_to(ids, tt.shape), -1), axis=0
-        )
-        tile_u = jnp.max(jnp.where(sel, uu, -jnp.inf), axis=0)
-        tile_v = jnp.max(jnp.where(sel, vv, -jnp.inf), axis=0)
-
-        better = tile_t < t_out[0, :]
-        t_out[0, :] = jnp.where(better, tile_t, t_out[0, :])
-        tri_out[0, :] = jnp.where(better, tile_tri, tri_out[0, :])
-        u_out[0, :] = jnp.where(better, tile_u, u_out[0, :])
-        v_out[0, :] = jnp.where(better, tile_v, v_out[0, :])
+def _item_closest(tt, uu, vv, valid, ids):
+    """Per-item closest hit over the tile's triangle axis (first minimum):
+    (t, tri (-1 = none), u, v), each (I, RB)."""
+    k = jnp.argmin(tt, axis=1)[:, None, :]
+    pick = lambda x: jnp.take_along_axis(x, k, axis=1)[:, 0, :]
+    ok = pick(valid)
+    ids_b = jnp.broadcast_to(ids, tt.shape)
+    return (pick(tt), jnp.where(ok, pick(ids_b), -1), pick(uu), pick(vv))
 
 
-def _anyhit_kernel(bids_ref, cids_ref, ents_ref,
-                   o_ref, d_ref, tn_ref, tx_ref, ex_ref, tri_ref, _alias_ref,
-                   occ_out, touched_out):
-    w = pl.program_id(0)
-    new_block = jnp.logical_or(
-        w == 0, bids_ref[jnp.maximum(w - 1, 0)] != bids_ref[w]
-    )
+def _map_items(fn, n_items, tile_elems_per_item, *xs):
+    """lax.map `fn` over item chunks sized to TILE_ELEMS; xs lead with the
+    item axis (n_items)."""
+    step = max(1, min(n_items, TILE_ELEMS // max(tile_elems_per_item, 1)))
+    n_steps = -(-n_items // step)
+    pad = n_steps * step - n_items
+    xs = [jnp.concatenate([x, jnp.repeat(x[-1:], pad, axis=0)])
+          if pad else x for x in xs]
+    xs = [x.reshape((n_steps, step) + x.shape[1:]) for x in xs]
+    out = jax.lax.map(lambda a: fn(*a), xs)
+    return jax.tree_util.tree_map(
+        lambda y: y.reshape((n_steps * step,) + y.shape[2:])[:n_items], out)
 
-    @pl.when(new_block)
-    def _():
-        pad_lane = tx_ref[0, :] == -jnp.inf
-        occ_out[0, :] = jnp.where(pad_lane, 1.0, 0.0)
-        touched_out[0, :] = jnp.ones_like(touched_out[0, :])
 
-    live = jnp.logical_not(jnp.all(occ_out[0, :] > 0.0))
+def _fold_blocks(closest, outs, bids, nb):
+    """Segment-reduce per-item (I, RB) results into (1, nb*RB) ray-block
+    planes plus the touched plane (the merge format of _rounds)."""
+    work = bids.shape[0]
+    rb = outs[0].shape[1]
+    touched = jax.ops.segment_max(jnp.ones((work,), jnp.float32), bids,
+                                  num_segments=nb)
+    touched = jnp.broadcast_to(jnp.maximum(touched, 0.0)[:, None], (nb, rb))
+    flat = lambda x: x.reshape(1, nb * rb)
+    if not closest:
+        occ = jax.ops.segment_max(outs[0].astype(jnp.float32), bids,
+                                  num_segments=nb)
+        return [flat(jnp.maximum(occ, 0.0)), flat(touched)]
+    t, tri, u, v = outs
+    t_min = jax.ops.segment_min(t, bids, num_segments=nb)     # (nb, RB)
+    item = jnp.broadcast_to(jnp.arange(work, dtype=jnp.int32)[:, None],
+                            t.shape)
+    first = jax.ops.segment_min(
+        jnp.where(t == t_min[bids], item, work), bids, num_segments=nb)
+    first = jnp.clip(first, 0, work - 1)
+    lane = jnp.arange(rb)[None, :]
+    return [flat(t_min), flat(tri[first, lane]), flat(u[first, lane]),
+            flat(v[first, lane]), flat(touched)]
 
-    @pl.when(live)
-    def _():
-        _, _, _, valid, _ = _ray_tile_hits(
-            tri_ref[0], o_ref, d_ref, tn_ref, tx_ref, ex_ref
-        )
-        occ_out[0, :] = jnp.maximum(
-            occ_out[0, :], jnp.any(valid, axis=0).astype(jnp.float32)
-        )
+
+def _ray_items(bids, o_t, d_t, tn, tx, ex):
+    """Gather each item's ray block: o, d (I, 3, RB); tn, tx, ex (I, RB)."""
+    rb = BLOCK_RAYS
+    blk3 = lambda x: jnp.moveaxis(x.reshape(3, -1, rb), 1, 0)[bids]
+    blk1 = lambda x: x.reshape(-1, rb)[bids]
+    return blk3(o_t), blk3(d_t), blk1(tn), blk1(tx), blk1(ex)
 
 
 _OUT_SPECS_CLOSEST = 5   # t, tri, u, v, touched
 _OUT_SPECS_ANYHIT = 2    # occ, touched
 
 
-def _round_call(kernel, n_out, bids, cids, ents, o_t, d_t, tn, tx, ex,
-                tri_pack, nb, work):
-    n_lanes = nb * BLOCK_RAYS
-    ray_spec = pl.BlockSpec((3, BLOCK_RAYS), lambda w, b, c, e: (0, b[w]))
-    lane_spec = pl.BlockSpec((1, BLOCK_RAYS), lambda w, b, c, e: (0, b[w]))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(work,),
-        in_specs=[
-            ray_spec, ray_spec, lane_spec, lane_spec, lane_spec,
-            pl.BlockSpec((1, 16, tri_pack.shape[2]),
-                         lambda w, b, c, e: (c[w], 0, 0)),
-            lane_spec,
-        ],
-        out_specs=[lane_spec] * n_out,
-    )
-    out_shape = [jax.ShapeDtypeStruct((1, n_lanes), jnp.float32)
-                 for _ in range(n_out)]
-    if n_out == _OUT_SPECS_CLOSEST:
-        out_shape[1] = jax.ShapeDtypeStruct((1, n_lanes), jnp.int32)
-    zeros = jnp.zeros((1, n_lanes), jnp.float32)
-    return pl.pallas_call(
-        kernel,
-        name="binned_trace_round",
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        # Zeros plane aliased to the `touched` output: ray blocks that get
-        # no work are never visited, and their outputs must read as
-        # untouched (0), not garbage.
-        input_output_aliases={9: n_out - 1},
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=_interpret(),
-    )(bids, cids, ents, o_t, d_t, tn, tx, ex, tri_pack, zeros)
+def _round_call(n_out, bids, cids, o_t, d_t, tn, tx, ex, tri_pack, nb):
+    """One round of (block, cluster) items -> merge-format planes."""
+    closest = n_out == _OUT_SPECS_CLOSEST
+    k = tri_pack.shape[2]
+
+    def fn(b, c):
+        o, d, tn_i, tx_i, ex_i = _ray_items(b, o_t, d_t, tn, tx, ex)
+        tt, uu, vv, valid, ids = _tile_hits(tri_pack[c], o, d, tn_i, tx_i,
+                                            ex_i)
+        if closest:
+            return _item_closest(tt, uu, vv, valid, ids)
+        return (jnp.any(valid, axis=1),)
+
+    outs = _map_items(fn, bids.shape[0], k * BLOCK_RAYS, bids, cids)
+    return _fold_blocks(closest, outs, bids, nb)
 
 
 def _prep(orig, d, tmin, tmax, exclude):
@@ -411,8 +364,7 @@ def _prep(orig, d, tmin, tmax, exclude):
     tn = jnp.pad(
         jnp.broadcast_to(jnp.asarray(tmin, jnp.float32), (n,)), (0, npad)
     )[None]
-    # Padded lanes get tmax = -inf: they can never hit, and the kernels'
-    # early-termination treats them as resolved.
+    # Padded lanes get tmax = -inf: they can never hit.
     tx = jnp.pad(
         jnp.broadcast_to(jnp.asarray(tmax, jnp.float32).reshape(-1), (n,)),
         (0, npad), constant_values=-jnp.inf,
@@ -427,10 +379,9 @@ def _prep(orig, d, tmin, tmax, exclude):
 
 
 def _work_list(hit, entry, nb, c, work_chunk):
-    """Sorted work list from the cull mask: (flat ids, entry f32, nnz,
-    chunk size). Sort keys (miss, block, entry): hits first, block-major
-    (output accumulation needs consecutive revisits), near-to-far within
-    a block (early termination)."""
+    """Sorted work list from the cull mask: (flat ids, nnz, chunk size).
+    Sort keys (miss, block, entry): hits first, block-major, near-to-far
+    within a block."""
     flat = hit.reshape(-1)
     nnz = jnp.sum(flat.astype(jnp.int32))
     idx = jnp.arange(nb * c, dtype=jnp.int32)
@@ -442,37 +393,30 @@ def _work_list(hit, entry, nb, c, work_chunk):
     )
     miss = (~flat).astype(jnp.int32)
     bid = idx // c
-    _, _, _, order, ents = jax.lax.sort(
-        (miss, bid, ent_key, idx, ent_flat), num_keys=3
-    )
+    _, _, _, order = jax.lax.sort((miss, bid, ent_key, idx), num_keys=3)
     work = min(work_chunk, nb * c)
     # Padding keeps the final round's dynamic_slice from clamping its
     # start (which would desynchronize `pos` from the sliced items).
     order = jnp.concatenate([order, jnp.zeros((work,), jnp.int32)])
-    ents = jnp.concatenate([ents, jnp.zeros((work,), jnp.float32)])
-    return order, ents, nnz, work
+    return order, nnz, work
 
 
-def _rounds(kernel, n_out, merge, init, order, ents, nnz, work, c,
+def _rounds(n_out, merge, init, order, nnz, work, c,
             o_t, d_t, tn, tx, ex, tri_pack, nb):
     """Consume the work list in fixed-size rounds inside a while_loop;
-    `merge(state, outs)` folds one round's kernel outputs."""
+    `merge(state, outs)` folds one round's outputs."""
 
     def round_body(state):
         off = state[0]
         ids = jax.lax.dynamic_slice(order, (off,), (work,))
-        ent = jax.lax.dynamic_slice(ents, (off,), (work,))
         pos = off + jnp.arange(work, dtype=jnp.int32)
         # Duplicate the last valid work item into the tail: merging is
         # idempotent, so repeats are free of special-casing.
         last = jnp.minimum(jnp.maximum(nnz - 1 - off, 0), work - 1)
         last_id = jax.lax.dynamic_index_in_dim(ids, last, keepdims=False)
-        last_ent = jax.lax.dynamic_index_in_dim(ent, last, keepdims=False)
         ids = jnp.where(pos < nnz, ids, last_id)
-        ent = jnp.where(pos < nnz, ent, last_ent)
         outs = _round_call(
-            kernel, n_out, ids // c, ids % c, ent,
-            o_t, d_t, tn, tx, ex, tri_pack, nb, work,
+            n_out, ids // c, ids % c, o_t, d_t, tn, tx, ex, tri_pack, nb,
         )
         return (off + work,) + merge(state[1:], outs)
 
@@ -497,10 +441,9 @@ def _coherence_keys(orig, d, lo, hi):
     sign-coherence comes first), then a 9-bit/axis origin Morton code.
 
     Incoherent bounce/GI rays hit the binned tracer's worst case — raster-
-    order blocks have unbounded (o, d) boxes and the cull rate is 1.0
-    (docs/PERFORMANCE.md round-2 measurement: 2M incoherent rays at 82k
-    tris cost 4.9 s vs 358 ms coherent). Sorting by these keys rebuilds
-    coherent blocks at the cost of two multi-operand XLA sorts."""
+    order blocks have unbounded (o, d) boxes and the cull rate is 1.0.
+    Sorting by these keys rebuilds coherent blocks at the cost of two
+    multi-operand XLA sorts."""
     span = jnp.maximum(hi - lo, 1e-9)
     q = jnp.clip((orig - lo) / span * 512.0, 0.0, 511.0).astype(jnp.uint32)
     morton = (
@@ -518,8 +461,8 @@ def _coherence_keys(orig, d, lo, hi):
 
 def _reorder_rays(cs, orig, d, tmax, exclude):
     """Coherence-sort rays (one multi-operand lax.sort — payload rides the
-    sort network; a post-hoc 2M-row permutation gather would serialize on
-    TPU). Returns (orig, d, tmax, exclude, lane) sorted by key."""
+    sort network instead of a post-hoc 2M-row permutation gather).
+    Returns (orig, d, tmax, exclude, lane) sorted by key."""
     n = orig.shape[0]
     lo = jnp.min(cs.aabb_lo, axis=0)
     hi = jnp.max(cs.aabb_hi, axis=0)
@@ -568,7 +511,7 @@ def trace_closest_binned(cs: ClusterSet, orig, d, tmin=intersect.T_MIN,
     c = cs.num_clusters
     hit, entry = _interval_cull(o_t, d_t, tn, tx, cs.aabb_lo, cs.aabb_hi,
                                 nb, BLOCK_RAYS)
-    order, ents, nnz, work = _work_list(hit, entry, nb, c, work_chunk)
+    order, nnz, work = _work_list(hit, entry, nb, c, work_chunk)
     n_lanes = nb * BLOCK_RAYS
 
     def merge(state, outs):
@@ -589,8 +532,8 @@ def trace_closest_binned(cs: ClusterSet, orig, d, tmin=intersect.T_MIN,
         jnp.zeros((n_lanes,)),
     )
     best_t, best_tri, best_u, best_v = _rounds(
-        _closest_kernel, _OUT_SPECS_CLOSEST, merge, init,
-        order, ents, nnz, work, c, o_t, d_t, tn, tx, ex, cs.tri_pack, nb,
+        _OUT_SPECS_CLOSEST, merge, init,
+        order, nnz, work, c, o_t, d_t, tn, tx, ex, cs.tri_pack, nb,
     )
 
     return intersect.Hit(
@@ -605,9 +548,8 @@ def trace_closest_binned(cs: ClusterSet, orig, d, tmin=intersect.T_MIN,
 def trace_occluded_binned(cs: ClusterSet, orig, d, tmax,
                           tmin=intersect.T_MIN, exclude=None,
                           work_chunk=WORK_CHUNK, reorder=False):
-    """Any-hit occlusion query: True where something blocks [tmin, tmax].
-    Runs the dedicated any-hit kernel (no argmin/attribute outputs; a
-    fully-occluded block skips its remaining clusters)."""
+    """Any-hit occlusion query: True where something blocks [tmin, tmax]
+    (OR over the culled clusters; no argmin/attribute outputs)."""
     if reorder:
         orig = orig.reshape(-1, 3)
         d = d.reshape(-1, 3)
@@ -621,7 +563,7 @@ def trace_occluded_binned(cs: ClusterSet, orig, d, tmax,
     c = cs.num_clusters
     hit, entry = _interval_cull(o_t, d_t, tn, tx, cs.aabb_lo, cs.aabb_hi,
                                 nb, BLOCK_RAYS)
-    order, ents, nnz, work = _work_list(hit, entry, nb, c, work_chunk)
+    order, nnz, work = _work_list(hit, entry, nb, c, work_chunk)
     n_lanes = nb * BLOCK_RAYS
 
     def merge(state, outs):
@@ -630,32 +572,30 @@ def trace_occluded_binned(cs: ClusterSet, orig, d, tmax,
         return (occ_acc | ((touched[0] > 0.0) & (occ[0] > 0.0)),)
 
     (occ,) = _rounds(
-        _anyhit_kernel, _OUT_SPECS_ANYHIT, merge,
+        _OUT_SPECS_ANYHIT, merge,
         (jnp.zeros((n_lanes,), bool),),
-        order, ents, nnz, work, c, o_t, d_t, tn, tx, ex, cs.tri_pack, nb,
+        order, nnz, work, c, o_t, d_t, tn, tx, ex, cs.tri_pack, nb,
     )
     return occ[:n]
 
 
 # ---------------------------------------------------------------------------
-# Pair-stream tracing (round-5): per-RAY culling for incoherent batches
+# Pair-stream tracing: per-RAY culling for incoherent batches
 # ---------------------------------------------------------------------------
 #
 # The block-cull pipeline above is bounded by BLOCK diversity: a 512-ray
 # block of coherence-sorted bounce rays still touches ~19% of all clusters
-# (exact-union measurement, docs/PERFORMANCE.md round-5) while each RAY
-# individually passes ~2.3 clusters (0.4%) — a 50x gap no sort key can
-# close (measured sweep: more direction bits make it worse). The fix is to
-# assign work per (ray, cluster) PAIR:
+# while each RAY individually passes ~2.3 clusters (0.4%) — a gap no sort
+# key can close. The fix is to assign work per (ray, cluster) PAIR:
 #
-#   1. A Pallas scan slab-tests every ray against every cluster AABB and
-#      records its first L_SLOTS hit clusters + the exact hit count
+#   1. A scan slab-tests every ray against every supercluster AABB and
+#      records its first L_SLOTS hit superclusters + the exact hit count
 #      (rays with more go to a masked fallback through the block path).
-#   2. Pairs (ray x slot) are payload-sorted by cluster id (lax.sort is
-#      cheap on TPU: 8M x 10 arrays ~ 23 ms measured), cut into 512-pair
-#      blocks, and a work item is emitted per (block, distinct-cid run).
-#   3. The tile kernels run as before — one cluster DMA per item — with
-#      lanes masked to the item's cid, accumulating per pair block.
+#   2. Pairs (ray x slot) are payload-sorted by cluster id, cut into
+#      512-pair blocks, and a work item is emitted per (block,
+#      distinct-cid run).
+#   3. The tile math runs as in the block path — one supercluster per
+#      item — with lanes masked to the item's cid, folded per pair block.
 #   4. Results unsort by pair position and reduce over slots per ray
 #      (min for closest, OR for any-hit), merged with the fallback.
 #
@@ -665,110 +605,46 @@ def trace_occluded_binned(cs: ClusterSet, orig, d, tmax,
 L_SLOTS = 8            # recorded superclusters per ray (overflow -> fallback)
 SC_K = 4               # clusters per supercluster (scan/pair granularity:
                        # grazing-tangent rays touch many cluster AABBs and
-                       # blew the slot budget at cluster granularity —
-                       # 12.6% overflow at L=8; Morton-consecutive groups
-                       # of 4 collapse that tail while the kernel expands
-                       # each pair back to its 4 cluster tiles)
-SCAN_BLOCK = 2048      # ray lanes per scan grid step
+                       # blew the slot budget at cluster granularity;
+                       # Morton-consecutive groups of 4 collapse that tail
+                       # while each pair expands back to its 4 clusters)
 
 
-def _cluster_scan_kernel(ray_ref, ab_ref, out_ref, *, n_c, n_real, cb,
-                         l_slots):
-    """Per-lane slab scan over all cluster AABBs, one CB-cluster tile at a
-    time (vectorized — the scalar-extract-per-cluster first version cost
-    103 ms at 2M rays x 640 clusters). ray_ref rows: ox, oy, oz, dx, dy,
-    dz, tn, tx (1 row each, B lanes); ab_ref (Cp, 8) rows [lo3, hi3, 0, 0]; out_ref rows: slot_0..slot_{L-1}, count (int32)."""
-    x = ray_ref[...]
-    ox, oy, oz = x[0:1], x[1:2], x[2:3]
-    dx, dy, dz = x[3:4], x[4:5], x[5:6]
-    tn, tx = x[6:7], x[7:8]
-
-    def inv(v):
-        tiny = jnp.where(v >= 0.0, 1e-12, -1e-12)
-        return 1.0 / jnp.where(jnp.abs(v) < 1e-12, tiny, v)
-
-    ix, iy, iz = inv(dx), inv(dy), inv(dz)
-    b = ox.shape[1]
-    neg1 = jnp.full((1, b), -1, jnp.int32)
-
-    def tile(ti, carry):
-        slots, cnt = carry
-        ab = ab_ref[pl.ds(ti * cb, cb), :]                  # (CB, 8)
-        lox, loy, loz = ab[:, 0:1], ab[:, 1:2], ab[:, 2:3]
-        hix, hiy, hiz = ab[:, 3:4], ab[:, 4:5], ab[:, 5:6]
-        # Cluster ids from iota, NOT a bitcast table column: small ints
-        # are DENORMAL f32s and the XLA concat building the table flushes
-        # them to zero on TPU (the shift_row_gather hazard; measured as a
-        # silent hit-rate collapse, docs/PERFORMANCE.md round-5).
-        cid = (jax.lax.broadcasted_iota(jnp.int32, (cb, 1), 0)
-               + ti * cb)
-        t1x = (lox - ox) * ix
-        t2x = (hix - ox) * ix
-        t1y = (loy - oy) * iy
-        t2y = (hiy - oy) * iy
-        t1z = (loz - oz) * iz
-        t2z = (hiz - oz) * iz
-        tnc = jnp.maximum(
-            jnp.maximum(jnp.minimum(t1x, t2x), jnp.minimum(t1y, t2y)),
-            jnp.minimum(t1z, t2z),
-        )
-        tfc = jnp.minimum(
-            jnp.minimum(jnp.maximum(t1x, t2x), jnp.maximum(t1y, t2y)),
-            jnp.maximum(t1z, t2z),
-        )
-        # Small slack guards f32 rounding at AABB faces (overcull-safe:
-        # extra pairs are merged idempotently; missing one loses hits).
-        # Padded rows carry cid = -1 and never match a slot take below.
-        hit = ((tnc <= tfc + 1e-4) & (tfc >= tn - 1e-4)
-               & (tnc <= tx + 1e-4) & (cid < n_real))
-        hi32 = hit.astype(jnp.int32)
-        # Inclusive prefix count down the cluster-tile (sublane) axis.
-        pref = hi32
-        k = 1
-        while k < cb:
-            shifted = jnp.pad(pref, ((k, 0), (0, 0)))[:cb]
-            pref = pref + shifted
-            k *= 2
-        total = cnt + pref                                  # (CB, B)
-        for l in range(l_slots):
-            cand = jnp.max(
-                jnp.where(hit & (total == l + 1), cid, neg1), axis=0,
-                keepdims=True,
-            )
-            slots[l] = jnp.where(slots[l] >= 0, slots[l], cand)
-        cnt = cnt + jnp.sum(hi32, axis=0, keepdims=True)
-        return slots, cnt
-
-    slots = [neg1 for _ in range(l_slots)]
-    cnt = jnp.zeros((1, b), jnp.int32)
-    n_tiles = -(-n_c // cb)
-    for ti in range(n_tiles):
-        slots, cnt = tile(ti, (slots, cnt))
-    for l in range(l_slots):
-        out_ref[l:l + 1, :] = slots[l]
-    out_ref[l_slots:l_slots + 1, :] = cnt
+def _scan_rays(ray, ab, n_real, l_slots):
+    """Slab test of R rays against every supercluster AABB; records each
+    ray's first l_slots hit ids (ascending) and its exact hit count.
+    ray: (R, 8) rows [ox, oy, oz, dx, dy, dz, tn, tx]; ab: (C, 6)
+    [lo3, hi3]. Returns (slots (R, l_slots) int32 or -1, count (R,))."""
+    o, dd = ray[:, 0:3], ray[:, 3:6]
+    tn, tx = ray[:, 6:7], ray[:, 7:8]
+    tiny = jnp.where(dd >= 0.0, 1e-12, -1e-12)
+    inv = 1.0 / jnp.where(jnp.abs(dd) < 1e-12, tiny, dd)          # (R, 3)
+    t1 = [(ab[None, :, a] - o[:, a:a + 1]) * inv[:, a:a + 1]
+          for a in range(3)]
+    t2 = [(ab[None, :, 3 + a] - o[:, a:a + 1]) * inv[:, a:a + 1]
+          for a in range(3)]
+    tnc = jnp.maximum(jnp.maximum(jnp.minimum(t1[0], t2[0]),
+                                  jnp.minimum(t1[1], t2[1])),
+                      jnp.minimum(t1[2], t2[2]))
+    tfc = jnp.minimum(jnp.minimum(jnp.maximum(t1[0], t2[0]),
+                                  jnp.maximum(t1[1], t2[1])),
+                      jnp.maximum(t1[2], t2[2]))
+    cid = jnp.arange(ab.shape[0], dtype=jnp.int32)[None, :]
+    # Small slack guards f32 rounding at AABB faces (overcull-safe: extra
+    # pairs are merged idempotently; missing one loses hits).
+    hit = ((tnc <= tfc + 1e-4) & (tfc >= tn - 1e-4)
+           & (tnc <= tx + 1e-4) & (cid < n_real))                  # (R, C)
+    total = jnp.cumsum(hit.astype(jnp.int32), axis=1)
+    slots = jnp.stack(
+        [jnp.max(jnp.where(hit & (total == l + 1), cid, -1), axis=1)
+         for l in range(l_slots)], axis=1)
+    return slots, total[:, -1]
 
 
 def _cluster_scan(cs: ClusterSet, o_t, d_t, tn, tx, nb, l_slots=L_SLOTS):
     """Returns (slots (L, N) int32 SUPERCLUSTER ids or -1, count (N,)
     int32 — exact supercluster hit count per ray)."""
     c = -(-cs.num_clusters // SC_K)             # superclusters
-    n_lanes = nb * BLOCK_RAYS
-    cb = 128
-    sb = 512                                    # ray lanes per grid step
-    ns = -(-n_lanes // sb) * sb
-    pad = ns - n_lanes
-
-    def lane(v, fill=0.0):
-        return jnp.pad(v[0], (0, pad), constant_values=fill)[None]
-
-    ray = jnp.concatenate(
-        [lane(o_t[0:1]), lane(o_t[1:2]), lane(o_t[2:3]),
-         lane(d_t[0:1], 1.0), lane(d_t[1:2], 1.0), lane(d_t[2:3], 1.0),
-         lane(tn), lane(tx, -jnp.inf)],
-        axis=0,
-    )                                                       # (8, ns)
-    cp = -(-c // cb) * cb
     # Supercluster AABBs: union of each SC_K consecutive cluster boxes
     # (pad with empty boxes: lo=+inf/hi=-inf never slab-hit).
     cpad = c * SC_K - cs.num_clusters
@@ -778,138 +654,40 @@ def _cluster_scan(cs: ClusterSet, o_t, d_t, tn, tx, nb, l_slots=L_SLOTS):
                    constant_values=-jnp.inf)
     sc_lo = jnp.min(lo_p.reshape(c, SC_K, 3), axis=1)
     sc_hi = jnp.max(hi_p.reshape(c, SC_K, 3), axis=1)
-    ab = jnp.concatenate(
-        [sc_lo, sc_hi, jnp.zeros((c, 2), jnp.float32)], axis=1
-    )
-    ab = jnp.pad(ab, ((0, cp - c), (0, 0)))
-    grid = ns // sb
-    out = pl.pallas_call(
-        functools.partial(_cluster_scan_kernel, n_c=cp, n_real=c, cb=cb,
-                          l_slots=l_slots),
-        name="cluster_scan",
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((8, sb), lambda j: (0, j)),
-            pl.BlockSpec((cp, 8), lambda j: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((l_slots + 1, sb), lambda j: (0, j)),
-        out_shape=jax.ShapeDtypeStruct((l_slots + 1, ns), jnp.int32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-        ),
-        interpret=_interpret(),
-    )(ray, ab)
-    slots = out[:l_slots, :n_lanes]
-    cnt = out[l_slots, :n_lanes]
-    return slots, cnt
+    ab = jnp.concatenate([sc_lo, sc_hi], axis=1)                 # (C, 6)
+    ray = jnp.concatenate([o_t, d_t, tn, tx], axis=0).T          # (N, 8)
+    slots, cnt = _map_items(
+        lambda r: _scan_rays(r, ab, c, l_slots), ray.shape[0], c, ray)
+    return slots.T, cnt
 
-
-def _closest_pair_kernel(bids_ref, cids_ref,
-                         o_ref, d_ref, tn_ref, tx_ref, ex_ref, pc_ref,
-                         tri_ref, _alias_ref,
-                         t_out, tri_out, u_out, v_out, touched_out):
-    """Closest-hit tile over PAIR lanes: identical to _closest_kernel
-    except each lane participates only in the work item matching its
-    pair's cluster id (pc_ref)."""
-    w = pl.program_id(0)
-    new_block = jnp.logical_or(
-        w == 0, bids_ref[jnp.maximum(w - 1, 0)] != bids_ref[w]
-    )
-
-    @pl.when(new_block)
-    def _():
-        t_out[0, :] = jnp.full_like(t_out[0, :], jnp.inf)
-        tri_out[0, :] = jnp.full_like(tri_out[0, :], -1)
-        u_out[0, :] = jnp.zeros_like(u_out[0, :])
-        v_out[0, :] = jnp.zeros_like(v_out[0, :])
-        touched_out[0, :] = jnp.ones_like(touched_out[0, :])
-
-    mine = (pc_ref[0, :] == cids_ref[w])[None, :]
-    for r in range(SC_K):
-        tt, uu, vv, valid, ids = _ray_tile_hits(
-            tri_ref[r], o_ref, d_ref, tn_ref, tx_ref, ex_ref
-        )
-        valid = valid & mine
-        tt = jnp.where(valid, tt, jnp.inf)
-        k = jnp.argmin(tt, axis=0)
-        sel = (jax.lax.broadcasted_iota(jnp.int32, tt.shape, 0)
-               == k[None, :])
-        tile_t = jnp.min(tt, axis=0)
-        tile_tri = jnp.max(
-            jnp.where(sel & valid, jnp.broadcast_to(ids, tt.shape), -1),
-            axis=0,
-        )
-        tile_u = jnp.max(jnp.where(sel, uu, -jnp.inf), axis=0)
-        tile_v = jnp.max(jnp.where(sel, vv, -jnp.inf), axis=0)
-
-        better = tile_t < t_out[0, :]
-        t_out[0, :] = jnp.where(better, tile_t, t_out[0, :])
-        tri_out[0, :] = jnp.where(better, tile_tri, tri_out[0, :])
-        u_out[0, :] = jnp.where(better, tile_u, u_out[0, :])
-        v_out[0, :] = jnp.where(better, tile_v, v_out[0, :])
-
-
-def _anyhit_pair_kernel(bids_ref, cids_ref,
-                        o_ref, d_ref, tn_ref, tx_ref, ex_ref, pc_ref,
-                        tri_ref, _alias_ref,
-                        occ_out, touched_out):
-    w = pl.program_id(0)
-    new_block = jnp.logical_or(
-        w == 0, bids_ref[jnp.maximum(w - 1, 0)] != bids_ref[w]
-    )
-
-    @pl.when(new_block)
-    def _():
-        occ_out[0, :] = jnp.zeros_like(occ_out[0, :])
-        touched_out[0, :] = jnp.ones_like(touched_out[0, :])
-
-    mine = (pc_ref[0, :] == cids_ref[w])[None, :]
-    for r in range(SC_K):
-        _, _, _, valid, _ = _ray_tile_hits(
-            tri_ref[r], o_ref, d_ref, tn_ref, tx_ref, ex_ref
-        )
-        valid = valid & mine
-        occ_out[0, :] = jnp.maximum(
-            occ_out[0, :], jnp.any(valid, axis=0).astype(jnp.float32)
-        )
-
-
-def _pair_round_call(kernel, n_out, bids, cids, o_t, d_t, tn, tx, ex, pc,
-                     tri_pack, n_lanes, work):
-    ray_spec = pl.BlockSpec((3, BLOCK_RAYS), lambda w, b, c: (0, b[w]))
-    lane_spec = pl.BlockSpec((1, BLOCK_RAYS), lambda w, b, c: (0, b[w]))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(work,),
-        in_specs=[
-            ray_spec, ray_spec, lane_spec, lane_spec, lane_spec, lane_spec,
-            pl.BlockSpec((SC_K, 16, tri_pack.shape[2]),
-                         lambda w, b, c: (c[w], 0, 0)),
-            lane_spec,
-        ],
-        out_specs=[lane_spec] * n_out,
-    )
-    out_shape = [jax.ShapeDtypeStruct((1, n_lanes), jnp.float32)
-                 for _ in range(n_out)]
-    if n_out == _OUT_SPECS_CLOSEST:
-        out_shape[1] = jax.ShapeDtypeStruct((1, n_lanes), jnp.int32)
-    zeros = jnp.zeros((1, n_lanes), jnp.float32)
+def _pair_round_call(n_out, bids, cids, o_t, d_t, tn, tx, ex, pc,
+                     tri_pack):
+    """One round of (pair block, supercluster) items: each item tests its
+    SC_K clusters (in order) against the pair lanes whose cid matches."""
+    closest = n_out == _OUT_SPECS_CLOSEST
+    nb = pc.shape[1] // BLOCK_RAYS
+    k = tri_pack.shape[2]
     # Pad the pack to an SC_K multiple: zero rows decode to degenerate
     # triangles (det = 0 -> never valid).
     cpad = -(-tri_pack.shape[0] // SC_K) * SC_K - tri_pack.shape[0]
     if cpad:
         tri_pack = jnp.pad(tri_pack, ((0, cpad), (0, 0), (0, 0)))
-    return pl.pallas_call(
-        kernel,
-        name="binned_pair_round",
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        input_output_aliases={9: n_out - 1},
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=_interpret(),
-    )(bids, cids, o_t, d_t, tn, tx, ex, pc, tri_pack, zeros)
+    sc_pack = tri_pack.reshape(-1, SC_K, 16, k)
+    sc_pack = jnp.moveaxis(sc_pack, 1, 2).reshape(-1, 16, SC_K * k)
+
+    def fn(b, c):
+        o, d, tn_i, tx_i, ex_i = _ray_items(b, o_t, d_t, tn, tx, ex)
+        mine = (pc.reshape(-1, BLOCK_RAYS)[b] == c[:, None])[:, None, :]
+        tt, uu, vv, valid, ids = _tile_hits(sc_pack[c], o, d, tn_i, tx_i,
+                                            ex_i)
+        valid = valid & mine
+        if closest:
+            tt = jnp.where(valid, tt, jnp.inf)
+            return _item_closest(tt, uu, vv, valid, ids)
+        return (jnp.any(valid, axis=1),)
+
+    outs = _map_items(fn, bids.shape[0], SC_K * k * BLOCK_RAYS, bids, cids)
+    return _fold_blocks(closest, outs, bids, nb)
 
 
 def _pair_work(cid_sorted, np_, c):
@@ -970,7 +748,7 @@ def trace_closest_pairs(cs: ClusterSet, orig, d, tmin=intersect.T_MIN,
     np_ = o_p.shape[1]
 
     outs = _pair_rounds(
-        _closest_pair_kernel, _OUT_SPECS_CLOSEST, bids, cids, nnz,
+        _OUT_SPECS_CLOSEST, bids, cids, nnz,
         o_p, d_p, tn_p, tx_p, ex_p, pc, cs.tri_pack, np_,
     )
     t_r, tri_r, u_r, v_r, touched = outs
@@ -1026,7 +804,7 @@ def trace_occluded_pairs(cs: ClusterSet, orig, d, tmax,
     np_ = o_p.shape[1]
 
     occ_r, touched = _pair_rounds(
-        _anyhit_pair_kernel, _OUT_SPECS_ANYHIT, bids, cids, nnz,
+        _OUT_SPECS_ANYHIT, bids, cids, nnz,
         o_p, d_p, tn_p, tx_p, ex_p, pc, cs.tri_pack, np_,
     )
     occ_pair = (touched[0] > 0.0) & (occ_r[0] > 0.0)
@@ -1043,7 +821,7 @@ def trace_occluded_pairs(cs: ClusterSet, orig, d, tmax,
     return occ[:n]
 
 
-def _pair_rounds(kernel, n_out, bids, cids, nnz, o_p, d_p, tn_p, tx_p,
+def _pair_rounds(n_out, bids, cids, nnz, o_p, d_p, tn_p, tx_p,
                  ex_p, pc, tri_pack, np_, work_chunk=WORK_CHUNK):
     """Consume the pair work list in fixed-size rounds (mirrors _rounds:
     padding repeats the last valid item; merges are idempotent)."""
@@ -1095,8 +873,7 @@ def _pair_rounds(kernel, n_out, bids, cids, nnz, o_p, d_p, tn_p, tx_p,
         ids_b = jnp.where(posw < nnz, ids_b, last_b)
         ids_c = jnp.where(posw < nnz, ids_c, last_c)
         outs = _pair_round_call(
-            kernel, n_out, ids_b, ids_c, o_p, d_p, tn_p, tx_p, ex_p, pc,
-            tri_pack, n_lanes, work,
+            n_out, ids_b, ids_c, o_p, d_p, tn_p, tx_p, ex_p, pc, tri_pack,
         )
         return (off + work,) + merge(state[1:], outs)
 

@@ -1,8 +1,8 @@
 """LBVH build + traversal — the VK_KHR_acceleration_structure replacement.
 
 The reference delegates BVH build/refit/traversal to the Vulkan driver
-(acceleration_structure/accel.rs builds; shaders TraceRay). On TPU we own
-the whole thing, designed for the hardware:
+(acceleration_structure/accel.rs builds; shaders TraceRay). Here we own
+the whole thing, built from data-parallel XLA operations:
 
 Build (fully parallel, no sequential propagation — everything is sorts,
 scans, and fixed-depth binary searches that XLA vectorizes):
@@ -33,14 +33,14 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from sunray_tpu.utils import struct
 
 from sunray_tpu.ops import intersect
 
 STACK_DEPTH = 64
-# Rays per vmapped block. Stack memory = block * STACK_DEPTH * 4B; large
-# blocks have device-faulted on v5e (suspected stack-carry pressure) — keep
-# modest until the stream-traversal kernel replaces the per-ray stack walk.
+# Rays per vmapped block. Stack memory = block * STACK_DEPTH * 4B. Chosen
+# on an earlier accelerator; untuned on the H100 (ROADMAP: re-derive with
+# the traversal redesign).
 TRAVERSE_BLOCK = 8192
 
 
@@ -320,9 +320,8 @@ def _tri_hit_one(o, d, a, b, c, tmin, tmax):
 
 def _pack_tables(bvh: Bvh, tris):
     """Pack per-node and per-leaf data into row matrices so each traversal
-    iteration costs TWO row gathers instead of ~25 scalar gathers (XLA's
-    TPU gather charge is per-op, ~C-fold cheaper when C scalars ride one
-    index — same trick as render/restir._gather_packed).
+    iteration costs TWO row gathers instead of ~25 scalar gathers (C
+    scalars ride one index — same trick as render/restir._gather_packed).
 
     node_pack: (max(NL-1,1), 16): [child_l, child_r (bitcast), lmin3, lmax3,
                rmin3, rmax3, pad2]
@@ -331,10 +330,9 @@ def _pack_tables(bvh: Bvh, tris):
     v0, v1, v2 = tris
     nl = bvh.num_leaves
     f32 = jnp.float32
-    # DENORMAL-SAFE assembly (the bvh2-TLAS silent-black class, round 5):
-    # int ids bitcast to f32 are denormals that in-jit float assembly can
-    # flush to zero on TPU — build the tables as int32 bit patterns and
-    # reinterpret ONCE.
+    # DENORMAL-SAFE assembly (the bvh2-TLAS silent-black class): int ids
+    # bitcast to f32 are denormals that in-jit float assembly may flush to
+    # zero — build the tables as int32 bit patterns and reinterpret ONCE.
     def f2i(x):
         return jax.lax.bitcast_convert_type(x, jnp.int32)
 

@@ -8,7 +8,7 @@ BLAS instead of N copies of its triangles (the unified world-triangle BVH
 in ops/bvh.py expands them; fine at small scale, wasteful for
 many-instance scenes).
 
-Designed TPU-first rather than as a driver-call translation:
+Designed for XLA's static shapes rather than as a driver-call translation:
 
   - BLASes are built ONCE at scene load in OBJECT space (host-side numpy
     packing around the existing builders), so instance-transform animation
@@ -40,8 +40,8 @@ internal rows of `node_pack` at (id - NL) — BLAS internals first, TLAS
 internals appended per frame. All encoded ids and instance codes are
 NON-NEGATIVE on purpose: ids ride f32 table columns via bitcast, and
 non-negative int32 bit patterns are ordinary positive floats, never NaN
-payloads (negative ints bitcast to NaNs, which TPU float data paths are
-not guaranteed to round-trip bit-exactly).
+payloads (negative ints bitcast to NaNs, which float data paths are not
+guaranteed to round-trip bit-exactly).
 
 Leaf hits return WORLD triangle ids (instance world-triangle offset +
 local id), so shading and the differentiable hit-attribute recompute
@@ -55,7 +55,7 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from sunray_tpu.utils import struct
 
 from sunray_tpu.ops import intersect
 from sunray_tpu.ops.bvh import (
@@ -411,9 +411,10 @@ def build_frame_tlas(blas: BlasSet, scene) -> Tlas2:
     el, il = enc(child_l)
     er, ir = enc(child_r)
 
-    # DENORMAL HAZARD (measured: silent black frames on TPU): small int
-    # ids bitcast to f32 are denormals, and the in-jit concat assembling
-    # the rows fuses through TPU float registers, which FLUSH them to
+    # DENORMAL HAZARD (measured: silent black frames on an earlier
+    # accelerator): small int ids bitcast to f32 are denormals, and the
+    # in-jit concat assembling the rows fuses through float registers,
+    # which may FLUSH them to
     # zero — every TLAS child id became node 0 (the eager load-time BLAS
     # pack was unaffected; only this per-frame jit assembly fused).
     # Assemble the table in int32 (bit-exact data movement) and

@@ -1,6 +1,6 @@
 """Ray-triangle intersection and the brute-force tracer (the oracle).
 
-Möller-Trumbore over dense triangle blocks — the TPU-friendly formulation
+Möller-Trumbore over dense triangle blocks — the data-parallel formulation
 of what `VK_KHR_acceleration_structure` + `TraceRay` do in hardware on the
 reference (shaders call TraceRay; the driver owns traversal). Two query
 types mirror the reference's two ray flags:

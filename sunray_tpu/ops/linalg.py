@@ -1,10 +1,11 @@
 """Precision-pinned linear algebra helpers.
 
-On TPU, default-precision einsum/matmul truncates inputs to bfloat16 on the
-MXU. Every contraction in this framework is a geometry transform where that
-costs visible image error (vertex positions quantized to 8 mantissa bits),
-so all modules route through einsum32 (float32-accurate, HIGHEST precision).
-Kernels that *want* bf16 throughput must opt in explicitly.
+Default-precision einsum/matmul may run float32 inputs at reduced precision
+(TF32 on the GPU's tensor cores). Every contraction in this framework is a
+geometry transform where that costs visible image error (vertex positions
+quantized to ~10 mantissa bits), so all modules route through einsum32
+(float32-accurate, HIGHEST precision). Kernels that *want* reduced-precision
+throughput must opt in explicitly.
 """
 
 from __future__ import annotations
@@ -19,70 +20,27 @@ def einsum32(subscripts, *operands):
     )
 
 
-# Select-chain vs dynamic gather break-even: XLA's TPU gather runs at
-# ~25 ns/element when the table can't live in VMEM (~50 ms per 2M-lane
-# gather); a K-row select chain costs K compare+selects of VPU time
-# (~2 ms at K=128 for 2M lanes). Chains win by ~25x up to a few hundred
-# rows; beyond that compile size grows linearly, so cap conservatively.
+# Largest table a forced select chain (gather_cols(force_select=True))
+# unrolls; beyond it compile size grows linearly.
 SELECT_GATHER_MAX_ROWS = 128
 
-# Opt-in small-table gather strategy for FUSION-HOT call sites on TPU:
-# "onehot" = Pallas one-hot MXU matmul (ops/pallas_gather.py); "select" =
-# per-row compare+select chains. The chains fuse into every consumer and
-# get recomputed per fusion — 29.4 ms/frame of VPU selects in the 1080p
-# shade pass alone (round-3 device profile). But converting EVERY small
-# gather regressed the frame 170.8 -> 266.5 ms (measured): tiny tables
-# (2-8 rows) and walk-loop interiors want chains (they fuse; a kernel
-# launch per loop round pays HBM roundtrips). So call sites opt in via
-# gather_cols(mode=SMALL_GATHER_MODE) where the profile says chains burn
-# VPU; env SUNRAY_GATHER_SMALL=select restores chains everywhere for A/Bs.
-import os as _os
 
-SMALL_GATHER_MODE = _os.environ.get("SUNRAY_GATHER_SMALL", "onehot")
-
-
-def gather_cols(table, idx, force_select=None, mode=None):
+def gather_cols(table, idx, force_select=False):
     """Gather rows of a small-component (K, C) table by index, returning a
     TUPLE of C independent (N,)-shaped columns — the trailing dim never
     exists, so nothing can tile-pad.
 
-    force_select: True/False overrides the TPU-only gate (tests).
+    force_select: True unrolls a per-row compare+select chain per column
+    (tables up to SELECT_GATHER_MAX_ROWS rows) instead of the dynamic
+    gather; the equivalence oracle for tests.
 
-    Motivation (examples/mem_audit.py on the 1080p frame): the stacked
-    (N, 12) instance-transform gather inside the walk loop materialized at
-    10.7x padding (95 MB -> 1 GB), and each of its ~12 (N, 1) column-slice
-    consumers materialized at 128x (8 MB -> 1 GB each) — ~13 GB of HBM
-    temps from ONE gather. Consumers that use columns (weighted sums,
-    unrolled contractions) should take them from here directly.
-
-    Tables with few rows (lights, materials, instances of small scenes) use
-    a per-column select chain: XLA's TPU gather emitter serializes dynamic
-    gathers it can't cache in VMEM (~25 ns/element — 49 ms for a 72-float
-    light table gathered by 6M lanes); per-row compare+select is pure VPU
-    and fuses into consumers. Chaining per column also does C/128 x less
-    VPU work than chaining a padded (N, C) buffer.
+    Consumers that use columns (weighted sums, unrolled contractions)
+    should take them from here directly: a stacked (N, C) gather result
+    whose columns are sliced apart again costs an extra materialization.
     """
     flat = table.reshape(table.shape[0], -1)
     k, c = flat.shape
-    # Select chains only pay off on TPU (the serial-gather problem is
-    # TPU-specific); on CPU they just bloat compile time.
-    use_select = (jax.default_backend() == "tpu"
-                  if force_select is None else force_select)
-    if (
-        mode == "onehot"
-        and force_select is None
-        and jax.default_backend() == "tpu"
-        and 0 < k
-    ):
-        from sunray_tpu.ops.pallas_gather import (
-            MAX_ROWS,
-            MIN_ROWS,
-            onehot_gather_cols,
-        )
-
-        if MIN_ROWS <= k <= MAX_ROWS:
-            return onehot_gather_cols(flat, idx)
-    if use_select and 0 < k <= SELECT_GATHER_MAX_ROWS:
+    if force_select and 0 < k <= SELECT_GATHER_MAX_ROWS:
         # Seed with row 0 and select rows 1..K-1 (one select fewer per
         # column). Out-of-range indices therefore yield row 0 here, while
         # the dynamic-gather branch clamps per XLA semantics — both are
@@ -99,16 +57,12 @@ def gather_cols(table, idx, force_select=None, mode=None):
 
 
 def gather_vec(table, idx):
-    """Gather rows of a small-component table by index — TPU-layout safe.
+    """Gather rows of a small-component table by index.
 
-    `table[idx]` with table (K, C...) and small C materializes a (N, C...)
-    buffer whose trailing dims get padded to the (8, 128) tile — a 25-60x
-    HBM expansion that OOMs 1080p frames (observed: a (P,3,5,2) UV gather
-    padding 237MB to 9.9GB). Decomposing into per-column gathers/select
-    chains (gather_cols) keeps every materialized buffer (N,)-shaped
-    (padding-free); the final stack is an elementwise producer XLA usually
-    fuses into consumers. Hot-loop callers that consume columns should call
-    gather_cols directly and never stack.
+    Decomposes into per-column gathers (gather_cols), so every gathered
+    buffer is (N,)-shaped; the final stack is an elementwise producer XLA
+    usually fuses into consumers. Hot-loop callers that consume columns
+    should call gather_cols directly and never stack.
     """
     comp_shape = table.shape[1:]
     cols = gather_cols(table, idx)

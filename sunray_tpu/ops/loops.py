@@ -21,9 +21,8 @@ def bounded_loop(cond, body, init, max_iters: int, differentiable: bool,
 
     peel: run the first `peel` iterations UNCONDITIONALLY inline before
     entering the loop. A while_loop boundary materializes the whole carry
-    (HBM round-trip) and blocks fusion with the surrounding program —
-    measured ~120 ms per walk round at 1080p vs the same body fused
-    inline. The bounce walks almost always execute at least one round, so
+    (a device-memory round trip) and blocks fusion with the surrounding
+    program. The bounce walks almost always execute at least one round, so
     peeling it is free fusion. Callers must guarantee the body is a no-op
     (masked) for lanes whose cond already failed; only counters may
     advance. peel > max_iters is clamped.
@@ -40,10 +39,9 @@ def bounded_loop(cond, body, init, max_iters: int, differentiable: bool,
         return jax.lax.while_loop(cond, loop_body, init)
 
     # Rematerialize each scan iteration in the backward pass: without
-    # this, reverse-mode saves every intermediate of every round and the
-    # 720p differentiable frame OOMs a 16 GB v5e (measured r4: dozens of
-    # f32[rounds, P, 3] residual buffers). With remat only the per-round
-    # CARRY is saved and the body recomputes in the backward — the
+    # this, reverse-mode saves every intermediate of every round (dozens
+    # of f32[rounds, P, 3] residual buffers). With remat only the
+    # per-round CARRY is saved and the body recomputes in the backward — the
     # classic memory/FLOPs trade, and the walk bodies are cheap relative
     # to their residual footprint.
     remat_body = jax.checkpoint(loop_body)

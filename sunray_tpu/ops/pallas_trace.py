@@ -1,19 +1,20 @@
-"""Pallas TPU kernels for ray-triangle intersection (brute-force path).
+"""Brute-force ray-triangle kernels for the GPU: Pallas through Triton.
 
-Why: the jnp formulation materializes ~10 (rays x tris) intermediates in
-HBM per trace, each lane-padded (T=36 -> 128), costing ~75 ms per 2M-ray
-closest-hit query on v5e. In Pallas the (T_tile, B) working set lives in
-VMEM and only the (B,) results leave the chip: the kernel is VPU
-compute-bound instead of HBM-bound (measured 9.9 ms for the same query).
+The jnp oracle (`ops/intersect.py`) evaluates Moller-Trumbore over a
+(rays x tris) plane and reduces it with a 4-output argmin. Here one
+program owns a block of `block` rays, keeps each ray and its running
+result (t, tri, u, v) or its occlusion bit in registers, and loops over
+every triangle inside the kernel. Triangles are a (9, T) SoA table
+(v0, e1, e2 by component) whose scalars every thread of the block reads
+from the same address, so only the rays and the (N,) results touch
+device memory.
 
-Layout: rays SoA-transposed to (3, N) so the ray axis is the 128-wide lane
-dimension; triangles broadcast along sublanes. Grid = (ray blocks,
-triangle tiles): the triangle axis is an "arbitrary" grid dimension whose
-steps accumulate into the same output block (running min / running any),
-which sidesteps Mosaic's refusal to legalize dynamic memref slices inside
-an in-kernel fori loop.
-
-Numerically identical to ops.intersect.moller_trumbore (same epsilons).
+Same arithmetic as `intersect.moller_trumbore` (same epsilons, same
+products and sums in the same order; no matrix product, so TF32 never
+enters). The compiler may contract a multiply-add into an FMA where XLA
+does not, so a ray exactly on a triangle edge or with two triangles at
+the same t can resolve differently; everything else agrees. Ties go to
+the lower triangle id, as with `argmin`.
 """
 
 from __future__ import annotations
@@ -23,392 +24,154 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from sunray_tpu.ops import intersect
 
-BLOCK_RAYS = 2048      # lanes per kernel invocation (multiple of 128)
-TRI_TILE = 64          # max triangles per grid step (sublanes, mult of 8).
-                       # Small scenes shrink the tile to ceil8(n_tris): a
-                       # 36-tri Cornell padded to 64 sublanes wasted 44%
-                       # of the intersection VPU work (round-3 profile:
-                       # the 10 trace kernels were 31 ms of the 169 ms
-                       # frame before this).
+BLOCK_RAYS = 256       # rays per program (power of two)
+NUM_WARPS = 4          # 128 threads: two rays per thread at BLOCK_RAYS=256
 DET_EPS = intersect.DET_EPS
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+def tri_table(tris) -> jnp.ndarray:
+    """(v0, v1, v2) each (T, 3) -> (9, T) float32 rows [v0 | e1 | e2]."""
+    v0, v1, v2 = (jnp.asarray(v, jnp.float32) for v in tris)
+    return jnp.concatenate([v0.T, (v1 - v0).T, (v2 - v0).T], axis=0)
 
 
-def _tri_tile(n_tris: int) -> int:
-    return min(TRI_TILE, max(8, -(-n_tris // 8) * 8))
+def _load_rays(o_ref, d_ref, tn_ref, tx_ref, n_rays, block):
+    idx = pl.program_id(0) * block + jnp.arange(block, dtype=jnp.int32)
+    live = idx < n_rays
+    o = [plgpu.load(o_ref.at[idx * 3 + c], mask=live, other=0.0)
+         for c in range(3)]
+    d = [plgpu.load(d_ref.at[idx * 3 + c], mask=live, other=1.0)
+         for c in range(3)]
+    tn = plgpu.load(tn_ref.at[idx], mask=live, other=0.0)
+    tx = plgpu.load(tx_ref.at[idx], mask=live, other=0.0)
+    return idx, live, o, d, tn, tx
 
 
-def _pad_tris(tris, tile):
-    v0, v1, v2 = tris
-    t = v0.shape[0]
-    tp = -(-t // tile) * tile
-    if tp != t:
-        pad = ((0, tp - t), (0, 0))
-        v0 = jnp.pad(v0, pad)
-        v1 = jnp.pad(v1, pad)
-        v2 = jnp.pad(v2, pad)
-    return (v0, v1, v2), t, tp
-
-
-def _tile_hits(o3, d3, a0, a1, a2, tmin, tmax, n_tris, tile_base):
-    """Moller-Trumbore for one (TRI_TILE, B) tile. Returns (tt, uu, vv,
-    valid, tri_ids) with tt = inf where invalid."""
-    ox, oy, oz = o3
-    dx, dy, dz = d3
-    e1x = (a1[:, 0] - a0[:, 0])[:, None]
-    e1y = (a1[:, 1] - a0[:, 1])[:, None]
-    e1z = (a1[:, 2] - a0[:, 2])[:, None]
-    e2x = (a2[:, 0] - a0[:, 0])[:, None]
-    e2y = (a2[:, 1] - a0[:, 1])[:, None]
-    e2z = (a2[:, 2] - a0[:, 2])[:, None]
-
-    px = dy[None, :] * e2z - dz[None, :] * e2y
-    py = dz[None, :] * e2x - dx[None, :] * e2z
-    pz = dx[None, :] * e2y - dy[None, :] * e2x
+def _mt(o, d, tn, tx, tri_ref, j):
+    """Moller-Trumbore of the ray block against triangle j (the operation
+    order of intersect.moller_trumbore). Returns (t, u, v, valid)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    v0x, v0y, v0z = tri_ref[0, j], tri_ref[1, j], tri_ref[2, j]
+    e1x, e1y, e1z = tri_ref[3, j], tri_ref[4, j], tri_ref[5, j]
+    e2x, e2y, e2z = tri_ref[6, j], tri_ref[7, j], tri_ref[8, j]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
     det = e1x * px + e1y * py + e1z * pz
-    det_ok = jnp.abs(det) > DET_EPS
-    inv_det = jnp.where(det_ok, 1.0 / jnp.where(det_ok, det, 1.0), 0.0)
+    ok = jnp.abs(det) > DET_EPS
+    inv = jnp.where(ok, 1.0 / jnp.where(ok, det, 1.0), 0.0)
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    u = (sx * px + sy * py + sz * pz) * inv
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv
+    valid = (ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+             & (t >= tn) & (t <= tx))
+    return t, u, v, valid
 
-    tx = ox[None, :] - a0[:, 0][:, None]
-    ty = oy[None, :] - a0[:, 1][:, None]
-    tz = oz[None, :] - a0[:, 2][:, None]
-    uu = (tx * px + ty * py + tz * pz) * inv_det
-    qx = ty * e1z - tz * e1y
-    qy = tz * e1x - tx * e1z
-    qz = tx * e1y - ty * e1x
-    vv = (dx[None, :] * qx + dy[None, :] * qy + dz[None, :] * qz) * inv_det
-    tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
 
-    tri_ids = tile_base + jax.lax.broadcasted_iota(
-        jnp.int32, (a0.shape[0], 1), 0
+def _closest_kernel(o_ref, d_ref, tn_ref, tx_ref, tri_ref,
+                    t_out, tri_out, u_out, v_out, *, n_rays, n_tris, block):
+    idx, live, o, d, tn, tx = _load_rays(o_ref, d_ref, tn_ref, tx_ref,
+                                         n_rays, block)
+
+    def body(j, carry):
+        bt, bi, bu, bv = carry
+        t, u, v, valid = _mt(o, d, tn, tx, tri_ref, j)
+        better = valid & (t < bt)
+        return (jnp.where(better, t, bt), jnp.where(better, j, bi),
+                jnp.where(better, u, bu), jnp.where(better, v, bv))
+
+    init = (jnp.full((block,), jnp.inf, jnp.float32),
+            jnp.full((block,), -1, jnp.int32),
+            jnp.zeros((block,), jnp.float32),
+            jnp.zeros((block,), jnp.float32))
+    bt, bi, bu, bv = jax.lax.fori_loop(0, n_tris, body, init)
+    plgpu.store(t_out.at[idx], bt, mask=live)
+    plgpu.store(tri_out.at[idx], bi, mask=live)
+    plgpu.store(u_out.at[idx], bu, mask=live)
+    plgpu.store(v_out.at[idx], bv, mask=live)
+
+
+def _occluded_kernel(o_ref, d_ref, tn_ref, tx_ref, tri_ref, ex_ref,
+                     occ_out, *, n_rays, n_tris, block, use_exclude):
+    idx, live, o, d, tn, tx = _load_rays(o_ref, d_ref, tn_ref, tx_ref,
+                                         n_rays, block)
+    ex = (plgpu.load(ex_ref.at[idx], mask=live, other=-1)
+          if use_exclude else None)
+
+    def body(j, occ):
+        _, _, _, valid = _mt(o, d, tn, tx, tri_ref, j)
+        if use_exclude:
+            valid = valid & (ex != j)
+        return occ | valid.astype(jnp.int32)
+
+    occ = jax.lax.fori_loop(0, n_tris, body,
+                            jnp.zeros((block,), jnp.int32))
+    plgpu.store(occ_out.at[idx], occ, mask=live)
+
+
+def _ray_args(orig, d, tmin, tmax):
+    o = orig.reshape(-1, 3).astype(jnp.float32)
+    n = o.shape[0]
+    dd = d.reshape(-1, 3).astype(jnp.float32)
+    tn = jnp.broadcast_to(jnp.asarray(tmin, jnp.float32).reshape(-1), (n,))
+    tx = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32).reshape(-1), (n,))
+    return n, o.reshape(-1), dd.reshape(-1), tn, tx
+
+
+def _call(kernel, n, out_shape, block, interpret, name):
+    return pl.pallas_call(
+        kernel,
+        out_shape=out_shape,
+        grid=(pl.cdiv(n, block),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        interpret=interpret,
+        name=name,
     )
-    valid = (
-        det_ok
-        & (uu >= 0.0)
-        & (vv >= 0.0)
-        & (uu + vv <= 1.0)
-        & (tt >= tmin[None, :])
-        & (tt <= tmax[None, :])
-        & (tri_ids < n_tris)
-    )
-    return jnp.where(valid, tt, jnp.inf), uu, vv, valid, tri_ids
-
-
-def _closest_kernel(o_ref, d_ref, v0_ref, v1_ref, v2_ref, tn_ref, tx_ref,
-                    t_out, tri_out, u_out, v_out, *, n_tris):
-    ti = pl.program_id(1)
-
-    @pl.when(ti == 0)
-    def _():
-        t_out[0, :] = jnp.full_like(t_out[0, :], jnp.inf)
-        tri_out[0, :] = jnp.full_like(tri_out[0, :], -1)
-        u_out[0, :] = jnp.zeros_like(u_out[0, :])
-        v_out[0, :] = jnp.zeros_like(v_out[0, :])
-
-    o3 = (o_ref[0, :], o_ref[1, :], o_ref[2, :])
-    d3 = (d_ref[0, :], d_ref[1, :], d_ref[2, :])
-    tt, uu, vv, valid, tri_ids = _tile_hits(
-        o3, d3, v0_ref[...], v1_ref[...], v2_ref[...],
-        tn_ref[0, :], tx_ref[0, :], n_tris, ti * v0_ref.shape[0],
-    )
-    k = jnp.argmin(tt, axis=0)
-    sel = jax.lax.broadcasted_iota(jnp.int32, tt.shape, 0) == k[None, :]
-    tile_t = jnp.min(tt, axis=0)
-    tile_tri = jnp.max(
-        jnp.where(sel & valid, jnp.broadcast_to(tri_ids, tt.shape), -1), axis=0
-    )
-    tile_u = jnp.max(jnp.where(sel, uu, -jnp.inf), axis=0)
-    tile_v = jnp.max(jnp.where(sel, vv, -jnp.inf), axis=0)
-
-    better = tile_t < t_out[0, :]
-    t_out[0, :] = jnp.where(better, tile_t, t_out[0, :])
-    tri_out[0, :] = jnp.where(better, tile_tri, tri_out[0, :])
-    u_out[0, :] = jnp.where(better, tile_u, u_out[0, :])
-    v_out[0, :] = jnp.where(better, tile_v, v_out[0, :])
-
-
-def _occluded_kernel(o_ref, d_ref, v0_ref, v1_ref, v2_ref, tn_ref, tx_ref,
-                     ex_ref, occ_out, *, n_tris, use_exclude):
-    ti = pl.program_id(1)
-
-    @pl.when(ti == 0)
-    def _():
-        occ_out[0, :] = jnp.zeros_like(occ_out[0, :])
-
-    o3 = (o_ref[0, :], o_ref[1, :], o_ref[2, :])
-    d3 = (d_ref[0, :], d_ref[1, :], d_ref[2, :])
-    _, _, _, valid, tri_ids = _tile_hits(
-        o3, d3, v0_ref[...], v1_ref[...], v2_ref[...],
-        tn_ref[0, :], tx_ref[0, :], n_tris, ti * v0_ref.shape[0],
-    )
-    if use_exclude:
-        valid = valid & (
-            jnp.broadcast_to(tri_ids, valid.shape) != ex_ref[0, :][None, :]
-        )
-    occ_out[0, :] = occ_out[0, :] | jnp.any(valid, axis=0)
-
-
-def woop_matrices(tris):
-    """Per-triangle Woop-style affine transforms for the MXU occlusion
-    kernel (ROADMAP item 2a): rows of W = [e1 e2 n]^-1 (n = e1 x e2), so a
-    point's barycentric/height coords are (u, v, w) = W (x - v0) and a ray
-    needs only SIX dot products — (uo, vo, wo) = W o + c, (ud, vd, wd) =
-    W d — which batch into ONE (6T, 8) x (8, B) MXU matmul against
-    X = [o, 1, d, 0]. Closed-form inverse: W = [e2 x n; n x e1; n] / n.n.
-
-    Returns (a_mat (6, T, 8) float32 — component-major rows [uo, vo, wo,
-    ud, vd, wd] — and eps (T, 1): the per-triangle |wd| threshold
-    equivalent to Moller-Trumbore's DET_EPS, since det_MT = -wd * n.n).
-    Degenerate/padded triangles get eps = +inf (never hit)."""
-    v0, v1, v2 = tris
-    e1 = v1 - v0
-    e2 = v2 - v0
-    n = jnp.cross(e1, e2)
-    nn = jnp.sum(n * n, axis=-1)
-    ok = nn > 0.0
-    inv = jnp.where(ok, 1.0 / jnp.where(ok, nn, 1.0), 0.0)
-    r1 = jnp.cross(e2, n) * inv[:, None]
-    r2 = jnp.cross(n, e1) * inv[:, None]
-    r3 = n * inv[:, None]
-    z1 = jnp.zeros_like(nn)[:, None]
-    z3 = jnp.zeros_like(r1)
-
-    def o_rows(r):
-        c = -jnp.sum(r * v0, axis=-1)[:, None]
-        return jnp.concatenate([r, c, z3, z1], axis=1)        # (T, 8)
-
-    def d_rows(r):
-        return jnp.concatenate([z3, z1, r, z1], axis=1)       # (T, 8)
-
-    a_mat = jnp.stack(
-        [o_rows(r1), o_rows(r2), o_rows(r3),
-         d_rows(r1), d_rows(r2), d_rows(r3)], axis=0
-    )                                                         # (6, T, 8)
-    eps = jnp.where(ok, DET_EPS * inv, jnp.inf)[:, None]      # (T, 1)
-    return a_mat, eps
-
-
-def _pad_woop(a_mat, eps, tile):
-    t = a_mat.shape[1]
-    tp = -(-t // tile) * tile
-    if tp != t:
-        a_mat = jnp.pad(a_mat, ((0, 0), (0, tp - t), (0, 0)))
-        eps = jnp.pad(eps, ((0, tp - t), (0, 0)),
-                      constant_values=jnp.inf)
-    return a_mat, eps
-
-
-def _occluded_woop_kernel(a_ref, eps_ref, o_ref, d_ref, tn_ref, tx_ref,
-                          ex_ref, occ_out, *, n_tris, use_exclude, tile):
-    """Occlusion via the Woop transform: the 6T dot products ride one MXU
-    matmul; the VPU epilogue is the DIVISION-FREE scaled test (u = U/wd,
-    so sign tests against |wd| replace the inv_det multiply chain):
-    ~25 elementwise ops per (tri, ray) vs Moller-Trumbore's ~56."""
-    ti = pl.program_id(1)
-
-    @pl.when(ti == 0)
-    def _():
-        occ_out[0, :] = jnp.zeros_like(occ_out[0, :])
-
-    b = o_ref.shape[1]
-    one = jnp.ones((1, b), jnp.float32)
-    zero = jnp.zeros((1, b), jnp.float32)
-    x = jnp.concatenate([o_ref[...], one, d_ref[...], zero], axis=0)
-    a = a_ref[...].reshape(6 * tile, 8)
-    g = jax.lax.dot_general(
-        a, x, (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )                                                        # (6*tile, B)
-    uo = g[0 * tile:1 * tile]
-    vo = g[1 * tile:2 * tile]
-    wo = g[2 * tile:3 * tile]
-    ud = g[3 * tile:4 * tile]
-    vd = g[4 * tile:5 * tile]
-    wd = g[5 * tile:6 * tile]
-
-    sw = jnp.where(wd >= 0.0, 1.0, -1.0)
-    den = wd * sw                                  # |wd|
-    us = (uo * wd - wo * ud) * sw                  # = u * |wd|
-    vs = (vo * wd - wo * vd) * sw
-    ws = -wo * sw                                  # t * |wd|
-    tn = tn_ref[0, :][None, :] * den
-    tx = tx_ref[0, :][None, :] * den
-    tri_ids = jax.lax.broadcasted_iota(jnp.int32, (tile, 1), 0) + ti * tile
-    valid = (
-        (den > eps_ref[...])
-        & (us >= 0.0) & (vs >= 0.0) & (us + vs <= den)
-        & (ws >= tn) & (ws <= tx)
-        & (tri_ids < n_tris)
-    )
-    if use_exclude:
-        valid = valid & (
-            jnp.broadcast_to(tri_ids, valid.shape) != ex_ref[0, :][None, :]
-        )
-    occ_out[0, :] = occ_out[0, :] | jnp.any(valid, axis=0)
-
-
-def _prep_rays(orig, d, tmin, tmax):
-    orig = orig.reshape(-1, 3)
-    d = d.reshape(-1, 3)
-    n = orig.shape[0]
-    nb = -(-n // BLOCK_RAYS)
-    npad = nb * BLOCK_RAYS - n
-    o_t = jnp.pad(orig, ((0, npad), (0, 0))).T
-    d_t = jnp.pad(d, ((0, npad), (0, 0)), constant_values=1.0).T
-    tn = jnp.pad(
-        jnp.broadcast_to(jnp.asarray(tmin, jnp.float32), (n,)), (0, npad)
-    )[None]
-    tx = jnp.pad(
-        jnp.broadcast_to(jnp.asarray(tmax, jnp.float32).reshape(-1), (n,)),
-        (0, npad),
-    )[None]
-    return o_t, d_t, tn, tx, n, nb
-
-
-def _specs(nb, tiles, tp, w, tile=TRI_TILE):
-    ray_spec = pl.BlockSpec((3, BLOCK_RAYS), lambda i, t: (0, i),
-                            memory_space=pltpu.VMEM)
-    scal_spec = pl.BlockSpec((1, BLOCK_RAYS), lambda i, t: (0, i),
-                             memory_space=pltpu.VMEM)
-    tri_spec = pl.BlockSpec((tile, 3), lambda i, t: (t, 0),
-                            memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((1, BLOCK_RAYS), lambda i, t: (0, i),
-                            memory_space=pltpu.VMEM)
-    return ray_spec, scal_spec, tri_spec, out_spec
 
 
 def trace_closest_pallas(tris, orig, d, tmin=intersect.T_MIN,
-                         tmax=intersect.T_MAX) -> intersect.Hit:
-    """Closest hit over all triangles, Pallas kernel. tris: each (T, 3)."""
-    tile = _tri_tile(tris[0].shape[0])
-    (v0, v1, v2), n_tris, tp = _pad_tris(tris, tile)
-    tiles = tp // tile
-    o_t, d_t, tn, tx, n, nb = _prep_rays(orig, d, tmin, tmax)
-    ray_spec, scal_spec, tri_spec, out_spec = _specs(nb, tiles, tp, None,
-                                                     tile)
-
-    kernel = functools.partial(_closest_kernel, n_tris=n_tris)
-    t_o, tri_o, u_o, v_o = pl.pallas_call(
-        kernel,
-        name="trace_closest",
-        grid=(nb, tiles),
-        in_specs=[ray_spec, ray_spec, tri_spec, tri_spec, tri_spec,
-                  scal_spec, scal_spec],
-        out_specs=[out_spec] * 4,
-        out_shape=[
-            jax.ShapeDtypeStruct((1, nb * BLOCK_RAYS), jnp.float32),
-            jax.ShapeDtypeStruct((1, nb * BLOCK_RAYS), jnp.int32),
-            jax.ShapeDtypeStruct((1, nb * BLOCK_RAYS), jnp.float32),
-            jax.ShapeDtypeStruct((1, nb * BLOCK_RAYS), jnp.float32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=_interpret(),
-    )(o_t, d_t, v0, v1, v2, tn, tx)
-
-    t_r = t_o[0, :n]
-    tri_r = tri_o[0, :n]
-    return intersect.Hit(
-        t=t_r,
-        tri=jnp.maximum(tri_r, 0),
-        u=u_o[0, :n],
-        v=v_o[0, :n],
-        hit=tri_r >= 0,
-    )
-
-
-def trace_occluded_woop(tris, orig, d, tmax, tmin=intersect.T_MIN,
-                        exclude=None, woop=None):
-    """Occlusion query via the Woop/MXU kernel. Same predicate as
-    trace_occluded_pallas up to float-arithmetic noise (different
-    factorization of the same intersection equations — grazing-edge hits
-    can flip; equivalence pinned statistically in tests/test_intersect.py).
-    woop: optional precomputed (a_mat, eps) from woop_matrices (callers
-    hoist it out of per-bounce loops; XLA CSEs it across queries)."""
-    tile = _tri_tile(tris[0].shape[0])
+                         tmax=intersect.T_MAX, *, block=BLOCK_RAYS,
+                         interpret=False) -> intersect.Hit:
+    """Closest hit over all triangles; tris: (v0, v1, v2) each (T, 3).
+    Misses return t=inf, tri=0, u=v=0, hit=False."""
+    n, o, dd, tn, tx = _ray_args(orig, d, tmin, tmax)
     n_tris = tris[0].shape[0]
-    if woop is None:
-        woop = woop_matrices(tris)
-    a_mat, eps = _pad_woop(*woop, tile)
-    tiles = a_mat.shape[1] // tile
-    o_t, d_t, tn, tx, n, nb = _prep_rays(orig, d, tmin, tmax)
-    ray_spec, scal_spec, _, out_spec = _specs(nb, tiles, None, None, tile)
-
-    use_exclude = exclude is not None
-    npad = nb * BLOCK_RAYS - n
-    ex = (
-        jnp.pad(jnp.asarray(exclude, jnp.int32).reshape(-1), (0, npad),
-                constant_values=-1)[None]
-        if use_exclude
-        else jnp.full((1, nb * BLOCK_RAYS), -1, jnp.int32)
-    )
-
-    kernel = functools.partial(
-        _occluded_woop_kernel, n_tris=n_tris, use_exclude=use_exclude,
-        tile=tile,
-    )
-    occ = pl.pallas_call(
-        kernel,
-        name="trace_occluded_woop",
-        grid=(nb, tiles),
-        in_specs=[
-            pl.BlockSpec((6, tile, 8), lambda i, t: (0, t, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 1), lambda i, t: (t, 0),
-                         memory_space=pltpu.VMEM),
-            ray_spec, ray_spec, scal_spec, scal_spec, scal_spec,
-        ],
-        out_specs=out_spec,
-        out_shape=jax.ShapeDtypeStruct((1, nb * BLOCK_RAYS), bool),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=_interpret(),
-    )(a_mat, eps, o_t, d_t, tn, tx, ex)
-    return occ[0, :n]
+    f32 = jax.ShapeDtypeStruct((n,), jnp.float32)
+    kernel = functools.partial(_closest_kernel, n_rays=n, n_tris=n_tris,
+                               block=block)
+    t, tri, u, v = _call(
+        kernel, n, [f32, jax.ShapeDtypeStruct((n,), jnp.int32), f32, f32],
+        block, interpret, "trace_closest",
+    )(o, dd, tn, tx, tri_table(tris))
+    return intersect.Hit(t=t, tri=jnp.maximum(tri, 0), u=u, v=v,
+                         hit=tri >= 0)
 
 
 def trace_occluded_pallas(tris, orig, d, tmax, tmin=intersect.T_MIN,
-                          exclude=None):
-    tile = _tri_tile(tris[0].shape[0])
-    (v0, v1, v2), n_tris, tp = _pad_tris(tris, tile)
-    tiles = tp // tile
-    o_t, d_t, tn, tx, n, nb = _prep_rays(orig, d, tmin, tmax)
-    ray_spec, scal_spec, tri_spec, out_spec = _specs(nb, tiles, tp, None,
-                                                     tile)
-
+                          exclude=None, *, block=BLOCK_RAYS,
+                          interpret=False):
+    """Any hit in [tmin, tmax] -> (N,) bool; exclude: optional (N,) int32
+    triangle id ignored per ray (-1 = none)."""
+    n, o, dd, tn, tx = _ray_args(orig, d, tmin, tmax)
+    n_tris = tris[0].shape[0]
     use_exclude = exclude is not None
-    npad = nb * BLOCK_RAYS - n
-    ex = (
-        jnp.pad(jnp.asarray(exclude, jnp.int32).reshape(-1), (0, npad),
-                constant_values=-1)[None]
-        if use_exclude
-        else jnp.full((1, nb * BLOCK_RAYS), -1, jnp.int32)
-    )
-
-    kernel = functools.partial(
-        _occluded_kernel, n_tris=n_tris, use_exclude=use_exclude
-    )
-    occ = pl.pallas_call(
-        kernel,
-        name="trace_occluded",
-        grid=(nb, tiles),
-        in_specs=[ray_spec, ray_spec, tri_spec, tri_spec, tri_spec,
-                  scal_spec, scal_spec, scal_spec],
-        out_specs=out_spec,
-        out_shape=jax.ShapeDtypeStruct((1, nb * BLOCK_RAYS), bool),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-        ),
-        interpret=_interpret(),
-    )(o_t, d_t, v0, v1, v2, tn, tx, ex)
-    return occ[0, :n]
+    ex = (jnp.asarray(exclude, jnp.int32).reshape(-1) if use_exclude
+          else jnp.zeros((1,), jnp.int32))
+    kernel = functools.partial(_occluded_kernel, n_rays=n, n_tris=n_tris,
+                               block=block, use_exclude=use_exclude)
+    occ = _call(
+        kernel, n, jax.ShapeDtypeStruct((n,), jnp.int32), block, interpret,
+        "trace_occluded",
+    )(o, dd, tn, tx, tri_table(tris), ex)
+    return occ != 0

@@ -1,6 +1,6 @@
 """Texture atlas sampling: bilinear/nearest, wrap modes, NULL fallback.
 
-The TPU analog of the reference's descriptor-heap texture path
+The analog of the reference's descriptor-heap texture path
 (rt_utils.slang:121-133 `sample_texture`: resolved heap slots + SampleLevel 0
 with a per-texture sampler). Heap slots become atlas indices; samplers
 become per-texture (wrap_u, wrap_v, filter) metadata baked at load time

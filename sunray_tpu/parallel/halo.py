@@ -11,7 +11,7 @@ The frame's cross-pixel reads all have bounded screen-space reach:
 
 Under row sharding (mesh axis "sp") each reach becomes a halo of rows
 fetched from neighboring shards with `lax.ppermute` — the hand-written
-ICI-collective version of what GSPMD would emit as general collectives
+neighbor-collective version of what GSPMD would emit as general collectives
 (`parallel/sharding.py` keeps the GSPMD path; this module is the
 explicit-scaling path flagged in SURVEY.md section 2.3 / section 7 M8).
 
@@ -74,14 +74,14 @@ def make_grid(cfg, axis: str, nshards: int) -> ShardGrid:
     )
 
 
-# --- ICI traffic accounting (VERDICT r3 item 7) -------------------------
+# --- Collective traffic accounting ---------------------------------------
 #
 # Every cross-shard byte of the explicit-halo frame moves through the
 # ppermutes below, and slice shapes are static at trace time — so a
-# trace-time tally IS the exact per-chip ICI bytes/frame, with no
-# hand-maintained mirror of the exchange call sites to drift.
-# tests/test_spmd.py asserts the 1080p/8 number; dryrun_multichip emits
-# it for MULTICHIP_r04.json.
+# trace-time tally IS the exact per-device interconnect bytes/frame, with
+# no hand-maintained mirror of the exchange call sites to drift.
+# tests/test_spmd.py asserts the 1080p/8 number; dryrun_multichip prints
+# it.
 
 _TALLY = None
 
@@ -92,7 +92,7 @@ class traffic_tally:
 
     with traffic_tally() as t:
         jax.eval_shape(step, ...)   # or trace/lower the sharded frame
-    t["bytes"]  ->  per-chip ICI bytes per frame
+    t["bytes"]  ->  per-device interconnect bytes per frame
     """
 
     def __enter__(self):

@@ -1,10 +1,10 @@
 """Multi-chip / multi-host sharding (SURVEY.md section 7 M8).
 
 The reference is single-GPU (SURVEY.md section 2.3); scaling here is the
-TPU-native design mandated by BASELINE.md: a 2D device mesh with
+design set by BASELINE.md: a 2D device mesh with
 
   - "dp" (data axis): independent sample batches / camera views — for
-    training, the batch axis whose gradients all-reduce (psum) over ICI;
+    training, the batch axis whose gradients all-reduce (psum);
   - "sp" (spatial axis): screen rows (tile axis) — pixel-parallel passes
     shard cleanly; cross-pixel reads (ReSTIR temporal/spatial gathers, TAA
     history fetch, a-trous taps) become XLA-inserted collectives under
@@ -53,25 +53,28 @@ def shard_rows(x, mesh: Mesh):
     return jax.device_put(x, NamedSharding(mesh, P("sp")))
 
 
+def place_frame_args(scene, cfg, state: RenderState, mats, mesh: Mesh):
+    """(scene, state, mats) placed for the GSPMD frame: flat (P,)
+    reservoir arrays sharded on their pixel axis and (H, W, C) images on
+    rows over 'sp'; the scene, the camera and everything else replicated."""
+
+    def put(x):
+        if x.ndim >= 2 and x.shape[0] == cfg.height:
+            return jax.device_put(x, NamedSharding(mesh, P("sp")))
+        if x.ndim >= 1 and x.shape[0] == cfg.height * cfg.width:
+            return jax.device_put(x, NamedSharding(mesh, P("sp")))
+        return jax.device_put(x, NamedSharding(mesh, P()))
+
+    return (replicate(scene, mesh), jax.tree_util.tree_map(put, state),
+            replicate(mats, mesh))
+
+
 def render_frame_sharded(scene, cfg, state: RenderState, mats, mesh: Mesh):
-    """One frame with the state's pixel arrays sharded over the 'sp' axis.
-
-    The frame function itself is unchanged — GSPMD partitions it. Flat (P,)
-    reservoir arrays shard on their pixel axis; (H, W, C) images on rows.
+    """One frame with the state's pixel arrays sharded over the 'sp' axis
+    (place_frame_args). The frame function itself is unchanged — GSPMD
+    partitions it.
     """
-
-    def shard_state(st: RenderState) -> RenderState:
-        def put(x):
-            if x.ndim >= 2 and x.shape[0] == cfg.height:
-                return jax.device_put(x, NamedSharding(mesh, P("sp")))
-            if x.ndim >= 1 and x.shape[0] == cfg.height * cfg.width:
-                return jax.device_put(x, NamedSharding(mesh, P("sp")))
-            return jax.device_put(x, NamedSharding(mesh, P()))
-        return jax.tree_util.tree_map(put, st)
-
-    state = shard_state(state)
-    scene = replicate(scene, mesh)
-    mats = replicate(mats, mesh)
+    scene, state, mats = place_frame_args(scene, cfg, state, mats, mesh)
 
     # The jitted step is cached per (cfg, mesh): a fresh jit(lambda) per
     # call would recompile EVERY frame (~20 s+ at dryrun sizes — measured;

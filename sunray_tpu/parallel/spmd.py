@@ -16,12 +16,11 @@ cross-pixel reads ride explicit `lax.ppermute` halo exchanges
 Semantics vs the single-device frame: identical except that temporal
 history whose reprojection crosses more than halo_t rows of shard
 boundary is rejected like off-screen history — the same policy the
-single-device TPU path already applies via the banded gathers
-(ops/banded.py). With motion below the halo the two paths agree to
+forced banded history gathers apply on one device (ops/banded.py). With motion below the halo the two paths agree to
 float-reassociation noise (tests/test_spmd.py asserts it).
 
 Collectives are neighbor ppermutes of halo rows — O(halo * W) bytes per
-step over ICI, independent of shard count: the weak-scaling shape the
+step over the interconnect, independent of shard count: the weak-scaling shape the
 scaling-book recipe wants (compute ∝ 1/n, comm constant).
 """
 

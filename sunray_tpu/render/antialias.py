@@ -22,10 +22,10 @@ suppressed by the depth-gap test, not mesh adjacency. The explicit
 shard_map path (parallel/spmd.py) has its own frame body and does not run
 this pass (GSPMD sharding of render_frame handles it transparently).
 
-TPU notes: everything is pad+slice shifts and elementwise math on (H, W)
+Layout: everything is pad+slice shifts and elementwise math on (H, W)
 planes; the only gather is one packed row gather of the winning
 triangles' vertices. All intermediates stay 2-D (H, W) per-component
-(tile-padding rule; see render/shade.py).
+(see render/shade.py).
 """
 
 from __future__ import annotations

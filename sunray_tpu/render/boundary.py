@@ -16,7 +16,7 @@ via deterministic silhouette-edge integration (the secondary-
 discontinuity boundary integral of Li et al. 2018, "Differentiable
 Monte Carlo Ray Tracing through Edge Sampling", specialized to
 triangle area lights and evaluated with fixed quadrature instead of
-edge sampling — TPU-friendly: a dense (P, E, S) batch instead of
+edge sampling — data-parallel: a dense (P, E, S) batch instead of
 data-dependent edge selection):
 
   d I/d theta += sum_{silhouette edges e} int_{y on proj_x(e) ∩ light}

@@ -290,9 +290,6 @@ def ris_pass(scene, cfg, tracer, lights, mats, prev_view_proj,
         lights, seed, walk["pos"], nrm_s, view_s,
         alb_s, rough_s, metal_s,
         cfg.ris_candidates, enable_di,
-        # Differentiable frames keep the jnp formulation (the Pallas
-        # audition routes no gradients; tracer-adjacent inference path).
-        kernel="jnp" if cfg.differentiable else "auto",
     )
     if cfg.history_joint_gather:
         # One shared reprojection + one packed banded gather for the DI

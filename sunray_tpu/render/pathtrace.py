@@ -1,7 +1,7 @@
 """Pass 2 — path trace with ReSTIR DI/GI spatial reuse or plain NEE.
 
 Wavefront port of shaders/ray_gen_final.slang:11-436, restructured into
-stages (the TPU formulation of the reference's divergent per-thread loop):
+stages (the data-parallel form of the reference's divergent per-thread loop):
 
   phase A: bounce walk. One closest-hit trace per round over the full batch,
            masked lanes. A lane leaves the walk on miss, emission brightness
@@ -60,7 +60,7 @@ import numpy as _np
 @functools.lru_cache(maxsize=8)
 def _blue_noise_tiled(w, h):
     """Host-precomputed tiled noise (the indices are static, so doing the
-    tiling in numpy turns two 17 ms runtime gathers into jit constants).
+    tiling in numpy turns two runtime gathers into jit constants).
     Cache holds numpy only — jnp conversion must happen per trace (a cached
     in-trace array would leak a tracer)."""
     noise = noise_texture()
@@ -79,7 +79,7 @@ def _blue_noise_rands(cfg, frame_count, grid=None):
 
     grid: shard_map mode — row0 is traced, so instead of numpy-folded
     constants the shard's rows come from a (NOISE_SIZE, W) column-tiled
-    table by one small row gather (the table is KBs, VMEM-cacheable)."""
+    table by one small row gather (the table is KBs, cache-resident)."""
     if grid is None:
         bn1_np, bn2_np = _blue_noise_tiled(cfg.width, cfg.height)
         bn1 = jnp.asarray(bn1_np)
@@ -406,7 +406,7 @@ def _shift_flat(x, dx, dy, h, w):
 
 def _pack_i32(fields):
     """Pack (P,) / (P, n) fields into ONE (P, C) int32 matrix (floats ride
-    bitcast — integer ops are bit-exact data movement, immune to the TPU
+    bitcast — integer ops are bit-exact data movement, immune to the
     denormal flush that corrupts int-bitcast data on float datapaths; see
     ops/banded.shift_row_gather). Returns (packed, spec) for _unpack_i32."""
     cols, spec = [], []
@@ -440,9 +440,9 @@ def _shared_taps(cfg, frame_count, count, radius, salt):
     the same area-uniform disc distribution as the reference's per-pixel
     draws (ray_gen_final.slang:164-167), but drawn once per iteration from
     a frame-seeded scalar stream. Neighbor reads then become whole-image
-    shifts instead of per-pixel gathers — XLA's TPU gather serializes when
-    the table can't be cached in VMEM (~52 ms per 2M-lane gather; a shift
-    is ~0.1 ms)."""
+    shifts instead of per-pixel gathers (chosen for an earlier
+    accelerator's slow gathers; the H100 cost of per-pixel taps is not
+    measured yet)."""
     s = rng_mod.init_seed(
         jnp.uint32(salt), frame_count.astype(jnp.uint32)
     )
@@ -460,6 +460,7 @@ def _shared_taps(cfg, frame_count, count, radius, salt):
     return taps
 
 
+@jax.named_scope("spatial_reuse")
 def _spatial_reuse(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
                    seed, c, cam_origin, frame_count, grid=None):
     """Phase B: ReSTIR DI + GI spatial reuse at frozen first-rough hits
@@ -515,10 +516,10 @@ def _spatial_reuse(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
         taps, ray_gen_final.slang:164-167): reservoir + G-buffer
         normal/depth in ONE packed row gather (amortizes what used to be
         three separate gathers per tap). Deliberately NOT banded: 8 taps
-        x 68 bands of gather ops sent the 1080p TPU compile past 18
-        minutes (docs/PERFORMANCE.md); the plain packed gather compiles
-        normally and perpixel is the exact-parity mode, not the default
-        hot path (spatial_taps='shared' is)."""
+        x 68 bands of gather ops made the 1080p compile take tens of
+        minutes; the plain packed gather compiles normally and perpixel
+        is the exact-parity mode, not the default hot path
+        (spatial_taps='shared' is)."""
         inb = (nx >= 0) & (ny >= 0) & (nx < w) & (ny < h)
         ni = jnp.clip(ny * w + nx, 0, w * h - 1)
         leaves, treedef = jax.tree_util.tree_flatten(reservoir)
@@ -550,10 +551,10 @@ def _spatial_reuse(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
         rolls into the merge math well. SUNRAY_TPU_PACKED_TAPS=1 (read at
         trace time) instead packs the reservoir leaves + normal + depth
         ONCE into a (P, C) int32 matrix and does ONE flat roll by dy*w+dx
-        per tap; measured same-session on v5e 1080p it LOSES 7 ms/frame
-        (217.5 vs 210.4 ms — the wide pack/roll copies cost more than the
-        many small fused rolls), images equal to 4.6e-6, so it stays
-        opt-in for future toolchains. Flat-roll wraparound (row-crossing
+        per tap; on an earlier accelerator it lost to the per-leaf rolls
+        (the wide pack/roll copies cost more than the many small fused
+        rolls; images equal to 4.6e-6), so it stays opt-in. Not measured
+        on the H100. Flat-roll wraparound (row-crossing
         x, top/bottom y) only reaches lanes whose source pixel is
         off-screen, which `inb` masks. Under a grid the shift is the
         halo-window row slice + lane roll per leaf
@@ -659,10 +660,9 @@ def _spatial_reuse(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
         # (tests/test_pipeline.py::TestBatchedSpatialTaps).
         t_n = cfg.di_spatial_samples
         fetched = [di_fetch(dx, dy) for dx, dy in di_taps]
-        # (T, P) planes: taps on sublanes, pixels on lanes — per-tap
-        # accesses below are contiguous ROW reads (a (P, T) layout made
-        # every plane[:, i] a strided read of the whole tiled array; the
-        # audition's chain profiled ~13 ms/frame that way, restir.py).
+        # (T, P) planes: taps major, pixels minor — per-tap accesses
+        # below are contiguous ROW reads (a (P, T) layout makes every
+        # plane[:, i] a strided read of the whole array; restir.py).
         pl = lambda f: jnp.stack(f, axis=0)               # T x (P,) -> (T,P)
         idx_raw = pl([f[0].light_idx for f in fetched])
         w_raw = pl([f[0].W for f in fetched])
@@ -719,87 +719,28 @@ def _spatial_reuse(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
         )
         return seed, spatial
 
-    use_di_kernel = (
-        shared and not seq_taps and not cfg.differentiable
-        and jax.default_backend() == "tpu"
-        and os.environ.get("SUNRAY_TPU_FORCE_JNP_RESTIR", "0") != "1"
+    spatial = restir.ReservoirDI.empty(p)
+    center = r_di
+    c_ok = pending & (center.W > 0.0) & (center.light_idx < num_lights)
+    center = center.replace(
+        light_idx=jnp.minimum(center.light_idx, num_lights - 1)
     )
-    if use_di_kernel:
-        # Whole phase-B DI reuse in one Pallas VMEM pass (center merge +
-        # taps + resolve + winner f_y; ops/pallas_restir.py). The tap
-        # FETCHES stay XLA shifts; the jnp branches below remain the
-        # CPU/differentiable/oracle paths. No light-count cap (round 3
-        # gated this at 32): the reservoirs' light EMISSION is gathered
-        # once at the center pixels and shifted per tap alongside the
-        # other reservoir fields, so the kernel needs no in-VMEM light
-        # table at all.
-        from sunray_tpu.ops.linalg import gather_vec
-        from sunray_tpu.ops.pallas_restir import di_spatial_pallas
-
-        def _em_of(res):
-            idx_cl = jnp.clip(res.light_idx, 0, num_lights - 1)
-            return gather_vec(lights.emission, idx_cl)           # (P, 3)
-
-        if cfg.di_spatial_samples > 0:
-            res_src = r_di_x if grid is not None else r_di
-            em_src = _em_of(res_src)
-            em_fetch = make_shared_fetch(
-                (res_src, em_src),
-                gnormal_x if grid is not None else gnormal,
-                gdepth_x if grid is not None else gdepth,
-            )
-            fetched = [em_fetch(dx, dy) for dx, dy in di_taps]
-        else:
-            fetched = []
-        taps_k = [
-            (dict(light_pos=f[0][0].light_pos,
-                  light_normal=f[0][0].light_normal,
-                  W=f[0][0].W, M=f[0][0].M, light_idx=f[0][0].light_idx,
-                  emission=f[0][1]), f[2])
-            for f in fetched
-        ]
-        center_k = dict(
-            light_pos=r_di.light_pos, light_normal=r_di.light_normal,
-            W=r_di.W, M=r_di.M, light_idx=r_di.light_idx,
-            emission=_em_of(r_di),
-        )
-        seed, outk = di_spatial_pallas(
-            seed, center_k, taps_k, pending,
-            pos, normal, v_view, albedo, rough, metal,
-            (cfg.di_temporal_w_clamp, cfg.di_temporal_m_clamp,
-             cfg.di_spatial_w_clamp, num_lights),
-        )
-        spatial = restir.ReservoirDI.empty(p).replace(
-            light_pos=outk["light_pos"], light_normal=outk["light_normal"],
-            w_sum=outk["w_sum"], M=outk["M"], light_idx=outk["light_idx"],
-        )
-        has = outk["has"]
-        w_spatial = outk["w_spatial"]
-        f_y_w = outk["f_y_w"]
-    else:
-        spatial = restir.ReservoirDI.empty(p)
-        center = r_di
-        c_ok = pending & (center.W > 0.0) & (center.light_idx < num_lights)
-        center = center.replace(
-            light_idx=jnp.minimum(center.light_idx, num_lights - 1)
-        )
-        p_hat_c, _ = lights.eval_p_hat(
-            center.light_idx, center.light_pos, center.light_normal,
-            pos, normal_s, v_view_s, albedo_s, rough_s, metal_s,
-        )
-        seed, u_m = rng_mod.rnd(seed)
-        spatial = restir.merge_di(spatial, center, p_hat_c, u_m, c_ok)
-        seed, spatial = _di_spatial_jnp(seed, spatial)
-        has = pending & (spatial.w_sum > 0.0)
-        p_hat_w, f_y_w = lights.eval_p_hat(
-            spatial.light_idx, spatial.light_pos, spatial.light_normal,
-            pos, normal_s, v_view_s, albedo_s, rough_s, metal_s,
-        )
-        w_spatial = spatial.w_sum / jnp.maximum(
-            spatial.M * p_hat_w, 1e-3
-        )
-        w_spatial = jnp.minimum(w_spatial, cfg.di_spatial_w_clamp)
-
+    p_hat_c, _ = lights.eval_p_hat(
+        center.light_idx, center.light_pos, center.light_normal,
+        pos, normal_s, v_view_s, albedo_s, rough_s, metal_s,
+    )
+    seed, u_m = rng_mod.rnd(seed)
+    spatial = restir.merge_di(spatial, center, p_hat_c, u_m, c_ok)
+    seed, spatial = _di_spatial_jnp(seed, spatial)
+    has = pending & (spatial.w_sum > 0.0)
+    p_hat_w, f_y_w = lights.eval_p_hat(
+        spatial.light_idx, spatial.light_pos, spatial.light_normal,
+        pos, normal_s, v_view_s, albedo_s, rough_s, metal_s,
+    )
+    w_spatial = spatial.w_sum / jnp.maximum(
+        spatial.M * p_hat_w, 1e-3
+    )
+    w_spatial = jnp.minimum(w_spatial, cfg.di_spatial_w_clamp)
 
     # DI winner shadow ray — computed here, TRACED together with the GI
     # final visibility ray below (independent queries; one 2P-ray call).
@@ -949,43 +890,6 @@ def _spatial_reuse(scene, cfg, tracer, lights, mats, gbuf, r_di, r_gi,
             (nr, ok_pre & ~occ_all[k * p : (k + 1) * p], jac)
             for k, (nr, ok_pre, jac) in enumerate(preps)
         ]
-        if use_di_kernel:
-            # Whole GI merge + final resolve in one Pallas VMEM pass
-            # (ops/pallas_restir.gi_spatial_pallas) — the (T, P) p_hat
-            # planes, merge chain, winner selects and resolve chains
-            # below collapse into registers; tap fetches/jacobians/
-            # visibility stay outside (they need shifts + the tracer).
-            from sunray_tpu.ops.pallas_restir import gi_spatial_pallas
-
-            center_g = dict(
-                sample_pos=combined.sample_pos,
-                sample_normal=combined.sample_normal,
-                sample_radiance=combined.sample_radiance,
-                sample_tri=combined.sample_tri,
-                w_sum=combined.w_sum, M=combined.M,
-            )
-            taps_g = [
-                dict(sample_pos=nr.sample_pos,
-                     sample_normal=nr.sample_normal,
-                     sample_radiance=nr.sample_radiance,
-                     sample_tri=nr.sample_tri,
-                     W=nr.W, M=nr.M, jac=jac, ok=ok_i)
-                for nr, ok_i, jac in preps
-            ]
-            seed, outg = gi_spatial_pallas(
-                seed, center_g, taps_g, pending, pos, normal, albedo,
-                metal, cfg.gi_spatial_w_clamp,
-            )
-            gdir = outg["gdir"]
-            gdist = outg["gdist"]
-            gi_tri = outg["sample_tri"]
-            try_gi = outg["try_gi"]
-            gi_contrib_pre = outg["contrib_pre"]
-            return _gi_radiance_add(
-                radiance, tracer, pos, sdir, sdist, di_exclude, has,
-                facing, f_y_w, w_spatial, throughput, gdir, gdist,
-                gi_tri, try_gi, gi_contrib_pre, p,
-            )
         pl = lambda f: jnp.stack(f, axis=0)               # (T, P) rows
         spos = [pl([pr[0].sample_pos[:, a] for pr in preps])
                 for a in range(3)]

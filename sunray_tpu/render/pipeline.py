@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from sunray_tpu.utils import struct
 
 from sunray_tpu.camera import Camera, camera_matrices
 from sunray_tpu.render import restir
@@ -114,11 +114,6 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
             history_shift_global=cfg.history_shift_global,
             history_force=cfg.history_gather_force,
             history_auto_min_retention=cfg.history_auto_min_retention,
-            # Differentiable frames stay on the jnp planes — the Pallas
-            # image kernels have no AD rules (same policy as the fused
-            # ReSTIR kernels, ops/pallas_restir.py).
-            kernel="jnp" if cfg.differentiable else cfg.taa_kernel,
-            history_select_kernel=restir._history_kernel_ok(cfg),
         )
     else:
         accum = raw_img
@@ -132,7 +127,6 @@ def render_frame(scene, cfg, state: RenderState, mats, accel=None):
             gbuf.roughness.reshape(h, w),
             gbuf.diffuse.reshape(h, w, 3),
             cfg.denoise_passes,
-            kernel="jnp" if cfg.differentiable else cfg.denoise_kernel,
         )
     else:
         den = accum

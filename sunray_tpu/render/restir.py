@@ -2,8 +2,8 @@
 
 Batched-SoA port of the reservoir algorithms in the reference shaders:
   - Reservoir layouts: rt_types.slang:123-143 / resources/reservoir.rs:1-54
-    (normals kept as float3 instead of octahedral-packed uint — TPU arrays
-    aren't byte-budgeted and packing would break gradients).
+    (normals kept as float3 instead of octahedral-packed uint — packing
+    would break gradients).
   - merge_reservoirs / merge_reservoirs_gi: rt_utils.slang:244-274
   - RIS audition (16 candidates, area-uniform): ray_gen_ris.slang:189-231
   - DI temporal reuse with confidence: ray_gen_ris.slang:233-267
@@ -16,11 +16,9 @@ Everything is per-pixel-parallel over flat (P,) arrays.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
-from flax import struct
+from sunray_tpu.utils import struct
 
 from sunray_tpu.ops import rng as rng_mod
 from sunray_tpu.ops.banded import (
@@ -176,15 +174,10 @@ class Lights:
         return luminance_max(f_y), f_y
 
 
+@jax.named_scope("ris_audition")
 def ris_audition(lights: Lights, seed, hit_pos, hit_normal, v_view, albedo,
-                 roughness, metallic, candidates: int, enable,
-                 kernel: str = "auto"):
+                 roughness, metallic, candidates: int, enable):
     """RIS candidate audition (ray_gen_ris.slang:189-231), batched.
-
-    kernel: "auto" runs the fused Pallas VMEM kernel on TPU
-    (ops/pallas_restir.py — zero HBM intermediates; the jnp planes still
-    cost ~23 ms/frame at 1080p), "jnp" forces the plane formulation
-    (CPU, differentiable paths, and the equivalence oracle).
 
     All `candidates` rounds of weighted reservoir sampling run as (P, K)
     planes: the LCG seed chain is value-independent (rng.rnd_chain), so
@@ -202,29 +195,10 @@ def ris_audition(lights: Lights, seed, hit_pos, hit_normal, v_view, albedo,
     k = candidates
     num_lights = lights.num
 
-    # SUNRAY_TPU_FORCE_JNP_RESTIR=1 (read at trace time): keep the jnp
-    # planes even on TPU — the fused-vs-jnp A/B harness knob
-    # (examples/ab_many_lights.py).
-    if (kernel == "auto" and jax.default_backend() == "tpu"
-            and os.environ.get("SUNRAY_TPU_FORCE_JNP_RESTIR", "0") != "1"):
-        from sunray_tpu.ops.pallas_restir import ris_audition_pallas
-
-        got = ris_audition_pallas(
-            lights.v0, lights.v1, lights.v2, lights.emission, seed,
-            hit_pos, hit_normal.astype(jnp.float32),
-            v_view.astype(jnp.float32), albedo.astype(jnp.float32),
-            roughness.astype(jnp.float32), metallic.astype(jnp.float32),
-            k, enable,
-        )
-        if got is not None:   # None: light table too big for the kernel
-            seed2, fields = got
-            return seed2, ReservoirDI.empty(p).replace(**fields)
-
-    # Candidate planes run (K, P) — candidates on SUBLANES, pixels on
-    # lanes — so the per-candidate reservoir chain and winner selects
-    # below read contiguous ROWS. The first cut used (P, K) and each
-    # plane[:, i] column slice was a strided read of the whole tiled
-    # array: the 16-step chain alone profiled ~13 ms/frame at 1080p.
+    # Candidate planes run (K, P) — candidates major, pixels minor — so
+    # the per-candidate reservoir chain and winner selects below read
+    # contiguous ROWS; with (P, K) each plane[:, i] column slice is a
+    # strided read of the whole array.
     seed, draws = rng_mod.rnd_chain(seed, 4 * k)       # (P, 4K)
     draws = draws.T                                    # one relayout
     u_pick = draws[0::4]
@@ -347,8 +321,8 @@ def _ris_audition_sequential(lights: Lights, seed, hit_pos, hit_normal,
         )
         return seed, r
 
-    # Unrolled: a fori_loop here costs ~10x more on TPU — the loop boundary
-    # materializes the carry and blocks cross-iteration fusion.
+    # Unrolled: a fori_loop boundary materializes the carry and blocks
+    # cross-iteration fusion.
     carry = (seed, r)
     for _ in range(candidates):
         carry = body(carry)
@@ -367,16 +341,14 @@ def _ris_audition_sequential(lights: Lights, seed, hit_pos, hit_normal,
 def _gather_packed(fields, idx, width=0, band=0, halo=0, layout="rows",
                    mode="banded", radius=3, grid=None, grid_halo=0,
                    valid=None, shift_global=True, force=None,
-                   auto_min_retention=0.98, kernel_ok=False):
+                   auto_min_retention=0.98):
     """Gather many same-length (P,) / (P,3) fields at the same indices with
-    ONE row gather of a packed (P, C) matrix. XLA's TPU gather emitter pays
-    ~25 ns per gathered scalar when tables exceed VMEM, but a packed row
-    moves C scalars per index in one op — measured ~C-fold cheaper than C
-    separate 1-D gathers in the frame program. int32 fields ride along
-    bitcast to f32.
+    ONE row gather of a packed (P, C) matrix: a packed row moves C scalars
+    per index in one op instead of C separate 1-D gathers. int32 fields
+    ride along bitcast to f32.
 
     With band > 0 the gather additionally runs banded (ops/banded.py: each
-    destination row band reads only a VMEM-sized window of source rows) and
+    destination row band reads only a window of source rows) and
     the last return value is the in-band validity mask; otherwise it is
     None (meaning all-valid).
 
@@ -396,37 +368,6 @@ def _gather_packed(fields, idx, width=0, band=0, halo=0, layout="rows",
         else:
             cols.append(g)
             spec.append((is_int, g.shape[1]))
-    if (kernel_ok and grid is None and band > 0 and width > 0
-            and mode == "auto" and shift_global
-            and jax.default_backend() == "tpu"):
-        from sunray_tpu.ops import pallas_window
-        from sunray_tpu.ops.banded import auto_row_gather_t
-
-        p = idx.shape[0]
-        span = 2 * (radius * width + radius)
-        if pallas_window.max_shift(p, span) > 0 and p >= pallas_window.BLOCK:
-            # Fast-path ladder on the TRANSPOSED (C, pad+P+pad) table: the
-            # Pallas window-select kernel runs the zero/4-tap/box branches
-            # in ~1 table pass (no pack->roll->ext->select chain); the
-            # banded fallback transposes in-branch (rare: fast rotation).
-            # The zero side/row pads ride the same concatenate that
-            # builds the table (pallas_window.build_table).
-            table_t = pallas_window.build_table(
-                [g.T for g in cols], p)
-            rows_t, in_band = auto_row_gather_t(
-                table_t, idx, width, band, halo, radius=radius,
-                min_retention=auto_min_retention, valid=valid,
-            )
-            out = []
-            o = 0
-            for is_int, n in spec:
-                g = rows_t[o] if n == 1 else rows_t[o:o + n].T
-                if is_int:
-                    g = jax.lax.bitcast_convert_type(g, jnp.int32)
-                out.append(g)
-                o += n
-            return out, in_band
-
     packed = jnp.concatenate(cols, axis=1)           # (P, C)
     if grid is not None:
         from sunray_tpu.parallel.halo import exchange_flat, gather_flat_ext
@@ -485,7 +426,7 @@ def gather_reservoir_gi(r: ReservoirGI, idx) -> ReservoirGI:
 
 def _gather_reservoir_banded(r, idx, width, cfg, grid=None, valid=None):
     """History gather for temporal reuse: banded or shift-select per
-    cfg.history_gather_mode when history_gather_band > 0 (TPU hot path),
+    cfg.history_gather_mode when cfg.history_gather_force (ops/banded.py),
     plain otherwise; halo-exchanged under a shard grid (parallel/halo.py).
     valid: reprojection in-bounds mask (shift mode's mean-motion hint).
     Returns (reservoir, validity-mask-or-None)."""
@@ -505,20 +446,9 @@ def _gather_reservoir_banded(r, idx, width, cfg, grid=None, valid=None):
         valid=valid, shift_global=cfg.history_shift_global,
         force=cfg.history_gather_force,
         auto_min_retention=cfg.history_auto_min_retention,
-        kernel_ok=_history_kernel_ok(cfg),
     )
     out = out[:1] + [jnp.zeros_like(wsum_leaf)] + out[1:]
     return jax.tree_util.tree_unflatten(treedef, out), in_band
-
-
-def _history_kernel_ok(cfg):
-    """Gate for the Pallas window-select history fast path: TPU forward
-    frames only (the differentiable frame keeps the jnp chain — no AD
-    rule through pallas_call; history carries no gradient, but the gate
-    mirrors the other fused kernels' policy)."""
-    return (cfg.history_select_kernel == "auto"
-            and not cfg.differentiable
-            and jax.default_backend() == "tpu")
 
 
 def gather_temporal_histories(cfg, seed, hist_di: ReservoirDI,
@@ -554,7 +484,6 @@ def gather_temporal_histories(cfg, seed, hist_di: ReservoirDI,
         valid=base_ok & enable_hint, shift_global=cfg.history_shift_global,
         force=cfg.history_gather_force,
         auto_min_retention=cfg.history_auto_min_retention,
-        kernel_ok=_history_kernel_ok(cfg),
     )
     n_di = len(leaves_di) - 1
     out_di = out[:1] + [jnp.zeros_like(wsum_di)] + out[1:n_di]
@@ -568,6 +497,7 @@ def gather_temporal_histories(cfg, seed, hist_di: ReservoirDI,
             base_ok)
 
 
+@jax.named_scope("di_temporal")
 def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
                       history: ReservoirDI, prev_uv, prev_valid, frame_count,
                       hit_pos, hit_normal, v_view, albedo, roughness, metallic,
@@ -593,39 +523,6 @@ def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
                                               valid=ok)
         if in_band is not None:
             ok = ok & in_band
-    if (jax.default_backend() == "tpu" and not cfg.differentiable
-            and os.environ.get("SUNRAY_TPU_FORCE_JNP_RESTIR", "0") != "1"):
-        # Fused VMEM temporal merge (ops/pallas_restir.di_temporal_pallas):
-        # confidence gates + both GGX p_hat chains + merge + W re-resolve
-        # collapse into registers. The emission lookups for the two
-        # candidate winners ride caller-side gathers (select chains for
-        # small tables), so the kernel has no light-count dependence.
-        from sunray_tpu.ops.pallas_restir import di_temporal_pallas
-
-        idx_cl = jnp.minimum(h.light_idx, lights.num - 1)
-        r_fields = dict(
-            light_pos=r.light_pos, light_normal=r.light_normal,
-            w_sum=r.w_sum, M=r.M, light_idx=r.light_idx, W=r.W,
-        )
-        h_fields = dict(
-            light_pos=h.light_pos, light_normal=h.light_normal,
-            W=h.W, M=h.M, light_idx=idx_cl,
-            hit_normal=h.hit_normal, depth=h.depth,
-        )
-        r_em = gather_vec(
-            lights.emission, jnp.clip(r.light_idx, 0, lights.num - 1)
-        )
-        h_em = gather_vec(lights.emission, idx_cl)
-        seed2, fields = di_temporal_pallas(
-            seed, r_fields, r_em, h_fields, h_em, ok,
-            hit_pos, hit_normal.astype(jnp.float32),
-            v_view.astype(jnp.float32), albedo.astype(jnp.float32),
-            roughness.astype(jnp.float32), metallic.astype(jnp.float32),
-            virtual_distance, cfg.di_temporal_m_clamp,
-            cfg.di_temporal_w_clamp,
-        )
-        return seed2, r.replace(**fields)
-
     h = h.replace(
         M=jnp.minimum(h.M, cfg.di_temporal_m_clamp),
         W=jnp.minimum(h.W, cfg.di_temporal_w_clamp),
@@ -658,6 +555,7 @@ def di_temporal_reuse(lights: Lights, cfg, seed, r: ReservoirDI,
     return seed, r
 
 
+@jax.named_scope("gi_temporal")
 def gi_temporal_reuse(cfg, seed, r: ReservoirGI, history: ReservoirGI,
                       prev_uv, prev_valid, frame_count,
                       hit_pos, hit_normal, albedo, metallic,

@@ -8,20 +8,19 @@ B = metallic, closest_hit.slang:85), emissive = emissive_tex.rgb * strength.
 
 Instead of packing the result into a 24-byte RayPayload
 (rt_types.slang:9-16), the Surface struct keeps float32 SoA — packing is a
-storage optimization on a register-starved GPU; on TPU the arrays stay in
-HBM/VMEM and quantizing them would only break gradients.
+storage optimization for the reference's per-thread payload; here the
+arrays are batched SoA planes and quantizing them would only break
+gradients.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
 from sunray_tpu.ops.linalg import (
     SELECT_GATHER_MAX_ROWS,
-    SMALL_GATHER_MODE,
     gather_cols,
     gather_vec,
 )
@@ -90,17 +89,14 @@ def shade_hits(scene, orig, d, hit, differentiable_t=True,
     fireflies (docs/PARITY.md); default False keeps exact parity.
     """
     tri = jnp.where(hit.hit, hit.tri, 0)
-    # Per-triangle indices ride one packed row gather (vidx + instance id)
-    # — or, when the table fits a select chain (<= 128 rows), compare+
-    # select columns: the device profile showed each 2M-lane row gather
-    # costing ~2.5 ms even on a VMEM-sized table (the TPU gather emitter
-    # serializes row gathers regardless of table size; the per-op charge
-    # notes are in ops/linalg.gather_cols and docs/PERFORMANCE.md).
+    # Per-triangle indices ride one packed row gather (vidx + instance id);
+    # small tables (<= 128 rows) gather per column (ops/linalg.gather_cols)
+    # so no (N, 4) buffer is sliced apart again.
     tpack = jnp.concatenate(
         [scene.tri_vidx, scene.tri_inst[:, None]], axis=1
     )                                                            # (T, 4)
     if tpack.shape[0] <= SELECT_GATHER_MAX_ROWS:
-        tcols = gather_cols(tpack, tri, mode=SMALL_GATHER_MODE)  # 4 x (N,)
+        tcols = gather_cols(tpack, tri)                          # 4 x (N,)
         vidx_k = tcols[0:3]
         inst = tcols[3]
     else:
@@ -111,9 +107,8 @@ def shade_hits(scene, orig, d, hit, differentiable_t=True,
 
     # All per-vertex attributes ride THREE packed row gathers (one per
     # triangle corner) instead of ~60 scalar gathers; small scenes
-    # (<= 128 vertices — the Cornell/benchmark class) take the select-
-    # chain path instead, which removed 9 x ~2.5 ms of serialized row
-    # gathers from the 1080p frame. Packed layout per vertex row:
+    # (<= 128 vertices — the Cornell/benchmark class) gather per column
+    # (gather_cols) instead. Packed layout per vertex row:
     # [position(3), normal(3), tangent(4), uvs(5x2)] = 20 columns.
     nverts = scene.positions.shape[0]
     vpack = jnp.concatenate(
@@ -142,31 +137,10 @@ def shade_hits(scene, orig, d, hit, differentiable_t=True,
         # a single fused gather would haul all 20 columns regardless.
         vgeo = vpack[:, :geo_cols]
         vuv = vpack[:, 10:]
-        from sunray_tpu.ops.pallas_gather import (
-            MAX_ROWS,
-            MIN_ROWS,
-            onehot_gather_cols_multi,
-        )
-
-        use_multi = (
-            SMALL_GATHER_MODE == "onehot"
-            and jax.default_backend() == "tpu"
-            and MIN_ROWS <= nverts <= MAX_ROWS
-        )
-        if use_multi:
-            # The 3 corner fetches hit the SAME table — one kernel launch
-            # per column group (table DMA'd to VMEM once, 3 one-hot MXU
-            # passes inside) instead of 3 (round-4 named-kernel profile:
-            # 12 onehot launches x ~0.65 ms; this folds 9 -> 3-ish).
-            geo3 = onehot_gather_cols_multi(vgeo, list(vidx_k))
-            uv3 = onehot_gather_cols_multi(vuv, list(vidx_k))
-            corners = [geo3[k] + uv3[k] for k in range(3)]
-        else:
-            corners = [
-                gather_cols(vgeo, vidx_k[k], mode=SMALL_GATHER_MODE)
-                + gather_cols(vuv, vidx_k[k], mode=SMALL_GATHER_MODE)
-                for k in range(3)
-            ]
+        corners = [
+            gather_cols(vgeo, vidx_k[k]) + gather_cols(vuv, vidx_k[k])
+            for k in range(3)
+        ]
     else:
         corners = [
             tuple(r[:, c] for c in range(ncols))
@@ -179,18 +153,13 @@ def shade_hits(scene, orig, d, hit, differentiable_t=True,
     # rule), so gradients flow through the intersection equations here
     # instead — w.r.t. vertices, transforms, ray origin and direction
     # (SURVEY.md section 7 M3 custom-VJP plan).
-    # Everything below stays strictly 2-D (N, C): any (N, 3, 3)-shaped
-    # intermediate tile-pads 3->8 sublanes x 3->128 lanes on TPU — a
-    # measured 42.7x HBM blow-up (2.97 GB for ONE (2M, 3, 3) temp in the
-    # walk loop; the 1080p frame OOM'd the 16 GB chip from these). The
-    # 3-corner / 3-component contractions are unrolled into column
-    # slices + weighted sums instead.
-    # gather_cols (not gather_vec): a stacked (N, 12) here materialized at
-    # 10.7x tile padding and its column slices at 128x — ~13 GB of walk-loop
-    # HBM temps at 1080p (examples/mem_audit.py) — unstacked (N,) columns
-    # are padding-free.
-    xf = gather_cols(scene.inst_transform.reshape(-1, 12), inst,
-                     mode=SMALL_GATHER_MODE)                     # 12 x (N,)
+    # Everything below stays strictly 2-D (N, C): no (N, 3, 3)-shaped
+    # intermediates in the walk loop. The 3-corner / 3-component
+    # contractions are unrolled into column slices + weighted sums.
+    # gather_cols (not gather_vec): a stacked (N, 12) gather whose columns
+    # are sliced apart again costs extra walk-loop temporaries
+    # (examples/mem_audit.py); unstacked (N,) columns do not.
+    xf = gather_cols(scene.inst_transform.reshape(-1, 12), inst)  # 12 x (N,)
 
     def to_world(c3):
         # Rows of the (3, 4) object->world transform live at xf[4i..4i+3];
@@ -253,11 +222,10 @@ def shade_hits(scene, orig, d, hit, differentiable_t=True,
     # world_n = normalize((W2O)^T @ n_obj).
     inv_rot = gather_cols(
         instance_inverse_rotations(scene.inst_transform).reshape(-1, 9), inst,
-        mode=SMALL_GATHER_MODE,
     )                                                            # 9 x (N,)
     # (W2O)^T @ n per pixel, elementwise column contractions (a batched-tiny
-    # einsum would lower to 2M micro-matmuls on the MXU; a (N, 3, 3)
-    # intermediate would tile-pad 42.7x — see the note above).
+    # einsum would lower to 2M micro-matmuls; no (N, 3, 3) intermediate —
+    # see the note above).
     world_normal = normalize(
         jnp.stack(
             [

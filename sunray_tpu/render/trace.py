@@ -13,18 +13,36 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
-import jax.numpy as jnp
-
 import jax
+import jax.numpy as jnp
+import numpy as np
 
 from sunray_tpu.ops import intersect
 from sunray_tpu.ops import bvh as bvh_mod
 from sunray_tpu.ops import pallas_trace
 
 
-def _use_pallas() -> bool:
-    """Pallas kernels on real TPU; interpret mode is slower than jnp on CPU."""
-    return jax.default_backend() == "tpu"
+def big_scene_mode(tri_inst, n_inst: int, bvh2_blas_max_tris: int) -> str:
+    """Scalable backend for tracer="auto" above the brute crossover:
+    "bvh2" when >= 2 instances all have small BLASes (shallow stack walks,
+    shared meshes); "binned" when a big mesh dominates or the scene is one
+    instance (stack walks collapse on big trees). tri_inst: host (T,)
+    instance id per world triangle."""
+    largest = int(np.bincount(np.asarray(tri_inst), minlength=1).max())
+    return ("bvh2" if n_inst >= 2 and largest <= bvh2_blas_max_tris
+            else "binned")
+
+
+def resolve_tracer(cfg, scene) -> str:
+    """The tracer a Renderer frame uses for `scene`: cfg.tracer, or for
+    "auto" brute force up to cfg.brute_force_max_tris and
+    big_scene_mode above it."""
+    if cfg.tracer != "auto":
+        return cfg.tracer
+    if scene.num_tris <= cfg.brute_force_max_tris:
+        return "brute"
+    return big_scene_mode(scene.tri_inst, int(scene.inst_prim.shape[0]),
+                          cfg.bvh2_blas_max_tris)
 
 
 class TracerCtx(NamedTuple):
@@ -43,9 +61,6 @@ class TracerCtx(NamedTuple):
     # per-hit alpha evaluation.
     alpha_scene: Optional[object] = None
     alpha_rounds: int = 4            # max cutout skips per query
-    # Precomputed Woop transforms (pallas_trace.woop_matrices) for the
-    # MXU occlusion kernel (cfg.trace_impl="woop"); None = Moller-Trumbore.
-    woop: Optional[tuple] = None
 
 
 def make_tracer(scene, cfg, accel=None) -> TracerCtx:
@@ -66,7 +81,7 @@ def make_tracer(scene, cfg, accel=None) -> TracerCtx:
     # flow through the hit-attribute recompute in render/shade.py
     # instead. stop_gradient here keeps reverse-mode AD from ever
     # descending into the trace kernels — without it, a differentiable
-    # frame on TPU dies in pallas_call's jvp rule (the tangents of
+    # frame dies in pallas_call's jvp rule (the tangents of
     # scene.positions reach the kernel operands through the refit).
     sg = jax.lax.stop_gradient
     tris = jax.tree_util.tree_map(sg, scene.world_triangle_vertices())
@@ -107,23 +122,13 @@ def make_tracer(scene, cfg, accel=None) -> TracerCtx:
             block=cfg.trace_block_rays,
             alpha_scene=alpha_scene,
         )
-    # The brute threshold is backend-aware: the Pallas kernel scales
-    # linearly to thousands of triangles on TPU, but the jnp fallback's
-    # (rays x tris) working set blows up on CPU — keep CPU small.
-    brute_max = cfg.brute_force_max_tris if _use_pallas() else min(
-        cfg.brute_force_max_tris, 512
-    )
     use_bvh = cfg.tracer == "bvh" or (
-        cfg.tracer == "auto" and n_tris > brute_max
+        cfg.tracer == "auto" and n_tris > cfg.brute_force_max_tris
     )
     bvh = bvh_mod.build_bvh(tris, leaf_size=cfg.bvh_leaf_size) if use_bvh else None
-    woop = None
-    if (bvh is None and _use_pallas()
-            and getattr(cfg, "trace_impl", "mt") == "woop"):
-        woop = pallas_trace.woop_matrices(tris)
     return TracerCtx(
         tris=tris, bvh=bvh, block=cfg.trace_block_rays,
-        alpha_scene=alpha_scene, woop=woop,
+        alpha_scene=alpha_scene,
     )
 
 
@@ -150,8 +155,8 @@ def _alpha_accepts(scene, tri, u, v):
     is_mask = mode == ALPHA_MASK
 
     vidx = gather_vec(scene.tri_vidx, tri)            # (N, 3)
-    # Per-corner (N, 2) gathers + weighted sum: an (N, 3, 2) intermediate
-    # tile-pads 3->8 x 2->128 on TPU (see render/shade.py).
+    # Per-corner (N, 2) gathers + weighted sum: no (N, 3, 2) intermediate
+    # (see render/shade.py).
     uv_table = scene.uvs[:, TEX_BASE_COLOR, :]
     weights = [1.0 - u - v, u, v]
     uv = sum(
@@ -171,12 +176,11 @@ def _raw_closest(ctx, orig, d, tmin, tmax, coherent=True):
         from sunray_tpu.ops import binned_trace as binned_mod
 
         # Incoherent batches take the PAIR-STREAM path (per-ray cluster
-        # scan + pair work list — measured 1262 -> 918 ms on 2M bounce
-        # rays at 82k tris, exact vs the block path; round-5 analysis in
-        # docs/PERFORMANCE.md). Coherent batches keep the block-culled
-        # path with the coherence reorder (pairs measured SLOWER there:
-        # 265 -> 587 ms — camera blocks are already tight, and the pair
-        # expansion's sorts dominate).
+        # scan + pair work list, exact vs the block path); coherent batches
+        # keep the block-culled path with the coherence reorder (camera
+        # blocks are already tight, and the pair expansion's sorts
+        # dominate). The split was chosen on an earlier accelerator; not
+        # measured on the H100.
         if not coherent:
             return binned_mod.trace_closest_pairs(
                 ctx.binned, orig, d, tmin, tmax
@@ -196,13 +200,25 @@ def _raw_closest(ctx, orig, d, tmin, tmax, coherent=True):
             ctx.bvh, ctx.tris, orig, d, tmin, tmax,
             block=min(ctx.block, bvh_mod.TRAVERSE_BLOCK),
         )
-    if _use_pallas():
-        return pallas_trace.trace_closest_pallas(ctx.tris, orig, d, tmin, tmax)
-    return intersect.trace_closest_brute(
-        ctx.tris, orig, d, tmin, tmax, block=ctx.block
-    )
+    return intersect.Hit(*_brute_query(
+        lambda *a: tuple(pallas_trace.trace_closest_pallas(ctx.tris, *a)),
+        lambda *a: tuple(intersect.trace_closest_brute(ctx.tris, *a,
+                                                       block=ctx.block)),
+        orig, d, tmin, tmax,
+    ))
 
 
+def _brute_query(pallas_fn, xla_fn, *args):
+    """Run a brute-force query as the Triton kernel (ops/pallas_trace.py)
+    in programs compiled for CUDA and as the jnp Moller-Trumbore planes
+    (ops/intersect.py) for any other target. A lowering rule
+    (lax.platform_dependent), decided per compiled program by its target
+    platform; a process default backend plays no part. Kernel-vs-XLA
+    times on the H100 are in PERF.md ("Kernel decisions")."""
+    return jax.lax.platform_dependent(*args, cuda=pallas_fn, default=xla_fn)
+
+
+@jax.named_scope("trace")
 def trace_closest(ctx: TracerCtx, orig, d, tmin=intersect.T_MIN,
                   tmax=intersect.T_MAX, coherent=True):
     """coherent=False: the caller knows the batch is incoherent
@@ -253,6 +269,7 @@ def trace_closest(ctx: TracerCtx, orig, d, tmin=intersect.T_MIN,
     return hit
 
 
+@jax.named_scope("trace")
 def trace_occluded(ctx: TracerCtx, orig, d, tmax, tmin=intersect.T_MIN,
                    exclude=None, coherent=True):
     """Boolean occlusion along segments. Degenerate segments (< 2e-3, the
@@ -329,19 +346,13 @@ def trace_occluded(ctx: TracerCtx, orig, d, tmax, tmin=intersect.T_MIN,
             ctx.bvh, ctx.tris, orig, d, tmax - 1e-3, tmin, exclude,
             block=min(ctx.block, bvh_mod.TRAVERSE_BLOCK),
         )
-    elif _use_pallas():
-        if ctx.woop is not None:
-            occ = pallas_trace.trace_occluded_woop(
-                ctx.tris, orig, d, tmax - 1e-3, tmin, exclude=exclude,
-                woop=ctx.woop,
-            )
-        else:
-            occ = pallas_trace.trace_occluded_pallas(
-                ctx.tris, orig, d, tmax - 1e-3, tmin, exclude=exclude
-            )
     else:
-        occ = intersect.trace_occluded_brute(
-            ctx.tris, orig, d, tmax - 1e-3, tmin, block=ctx.block,
-            exclude=exclude,
+        ex = () if exclude is None else (exclude,)
+        occ = _brute_query(
+            lambda o, dd, tx, tn, *e: pallas_trace.trace_occluded_pallas(
+                ctx.tris, o, dd, tx, tn, *e),
+            lambda o, dd, tx, tn, *e: intersect.trace_occluded_brute(
+                ctx.tris, o, dd, tx, tn, ctx.block, *e),
+            orig, d, tmax - 1e-3, tmin, *ex,
         )
     return occ & ~degenerate

@@ -5,7 +5,7 @@ The ResourceManager<K> analog (resource_manager.rs:41-80): meshes
 the caller owns the per-frame instance list (lib.rs:794,984 contract) and
 hands `(key, transform)` pairs to each frame.
 
-TPU shape discipline replaces the reference's arena machinery
+Static-shape discipline replaces the reference's arena machinery
 (ARENA_CAPACITY slots + ring staging, resource_manager.rs:14 and
 buffer/arena_core.rs): the packed triangle/vertex/instance arrays are
 padded to power-of-two capacities, so adding/removing a mesh or instance

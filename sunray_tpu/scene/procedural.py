@@ -208,3 +208,18 @@ def reflection_room(light_emission: float = 12.0) -> SceneBuffers:
     b.add_box((s * 0.3, 0.5, s * 0.55), (1.0, 1.0, 1.0), glass)
     b.add_box((s * 0.7, 0.4, s * 0.35), (0.8, 0.8, 0.8), white, rotate_y=0.5)
     return b.build()
+
+
+def triangle_soup(n: int, seed: int = 0, lo=(0.1, 0.1, 0.1),
+                  hi=(1.9, 1.9, 1.9), size: float = 0.15):
+    """n seeded random triangles (each edge up to `size`) scattered in the
+    box [lo, hi] — the Cornell box's interior by default. Returns
+    (v0, v1, v2), each (n, 3) float32: brute-force tracer load at a chosen
+    triangle count."""
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    v0 = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    v1 = (v0 + rng.uniform(-size, size, (n, 3))).astype(np.float32)
+    v2 = (v0 + rng.uniform(-size, size, (n, 3))).astype(np.float32)
+    return v0, v1, v2

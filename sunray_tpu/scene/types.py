@@ -7,7 +7,7 @@ struct-of-arrays jax pytrees instead of byte-packed buffers:
     rt_types.slang:24-36) -> SoA arrays: position/normal/tangent + 5 UV sets.
   - Material (112-byte packed struct, resources/material.rs:18-58) ->
     MaterialTable SoA; texture references are indices into a TextureAtlas
-    (the descriptor-heap-slot analog, heap slots being meaningless on TPU).
+    (the descriptor-heap-slot analog; there are no heap slots here).
   - EmissiveTriangle + EmissiveIndirectionEntry (gltf/emissive_triangle.rs:1-30,
     resource_manager.rs:216-267) -> local-space emissive triangle arrays plus
     a per-frame (emissive_tri, instance) indirection built by
@@ -16,7 +16,7 @@ struct-of-arrays jax pytrees instead of byte-packed buffers:
     custom index -> mesh info" indirection becomes tri_prim / inst_prim
     index arrays.
 
-Everything is a flax.struct dataclass => a pytree that can cross jit
+Everything is a utils.struct dataclass => a pytree that can cross jit
 boundaries, be donated, sharded, and checkpointed.
 """
 
@@ -28,7 +28,7 @@ import jax.numpy as jnp
 
 from sunray_tpu.ops.linalg import gather_vec
 import numpy as np
-from flax import struct
+from sunray_tpu.utils import struct
 
 NULL_TEXTURE = -1  # reference: u32::MAX (rt_types.slang:192); -1 for int32
 
@@ -191,7 +191,7 @@ class SceneBuffers:
     # target light's own triangle instead of relying on the reference's
     # absolute TMax epsilon (ray_gen_ris.slang:287-293), which geometrically
     # self-occludes near-perpendicular shadow rays. A software tracer knows
-    # triangle ids; a hardware TLAS doesn't — this is a TPU-native win.
+    # triangle ids; a hardware TLAS doesn't — a win of the software tracer.
     light_world_tri: jnp.ndarray  # (L,) int32 into the world triangle list
 
     # Unique-edge topology for shadow-boundary gradients
@@ -219,7 +219,7 @@ class SceneBuffers:
         p = gather_vec(self.positions, self.tri_vidx)      # (T, 3, 3)
         xf = gather_vec(self.inst_transform, self.tri_inst)  # (T, 3, 4)
         # out[t,k,i] = sum_j xf[t,i,j] * p[t,k,j] — elementwise broadcast
-        # (batched-tiny einsum lowers to per-triangle micro-matmuls on MXU).
+        # (a batched-tiny einsum lowers to per-triangle micro-matmuls).
         pw = (
             jnp.sum(xf[:, None, :, :3] * p[:, :, None, :], axis=-1)
             + xf[:, None, :, 3]
@@ -253,7 +253,7 @@ def build_scene(
     instances: list of (prim_id, (3,4) transform). The world triangle list
     is the expansion of each instance's primitive triangles — the analog of
     the reference's per-instance BLAS references resolved late
-    (blas.rs:445-482), done eagerly because TPU wants dense arrays.
+    (blas.rs:445-482), done eagerly because XLA wants dense arrays.
     """
     positions = np.asarray(positions, np.float32)
     normals = np.asarray(normals, np.float32)

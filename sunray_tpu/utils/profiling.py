@@ -1,6 +1,6 @@
 """Observability: per-stage timing, HLO dumps, device profiler traces.
 
-The TPU analogs of the reference's tracing/observability surface
+The analogs of the reference's tracing/observability surface
 (SURVEY.md section 5.1/5.5):
 
   - per-pass debug-utils labels (graph.rs:1062-1118) -> named jax.profiler
@@ -11,19 +11,26 @@ The TPU analogs of the reference's tracing/observability surface
   - Nsight/Aftermath captures -> jax.profiler.trace() xplane traces
     viewable in TensorBoard/xprof.
 
-Env flag: SUNRAY_TPU_DUMP_DIR (the SUNRAY_GRAPH_DUMP_DIR analog) — when
-set, Renderer dumps the compiled frame HLO there on first compile.
+Trace reduction: summarize_trace() reads the device lanes of a
+jax.profiler trace (GPU planes only; a trace without one raises), and
+hlo_stage_map() joins kernel names to the frame's named stages.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import re
 import time
 
 import jax
 
-DUMP_DIR_ENV = "SUNRAY_TPU_DUMP_DIR"
+# Named stages of the frame (jax.named_scope in render/), innermost wins:
+# a trace query inside the RIS pass counts as "trace".
+STAGES = ("trace", "ris_audition", "di_temporal", "gi_temporal",
+          "spatial_reuse", "ris_pass", "final_pass", "taa", "denoise",
+          "postprocess")
+GPU_PLANE_PREFIX = "/device:GPU:"
 
 
 def dump_hlo(fn, args, path: str, name: str = "frame") -> str:
@@ -56,17 +63,9 @@ def device_trace(log_dir: str):
         jax.profiler.stop_trace()
 
 
-def summarize_trace(log_dir: str, top: int = 25, steady_frac: float = 0.5):
-    """Parse the newest *.trace.json.gz under a device_trace() log dir into
-    a per-op cost table (the manual workflow from docs/PERFORMANCE.md's
-    "device profiler" loop, as a utility).
-
-    Groups TensorCore complete-events by op name, keeping only the steady
-    tail of the trace (`steady_frac` of wall time — skips compile/warmup
-    events at the front). Returns a list of
-    {"name", "total_ms", "count", "pct"} sorted by total time desc;
-    prints the top `top` rows.
-    """
+def load_trace(log_dir: str) -> list:
+    """traceEvents of the newest *.trace.json.gz under a device_trace()
+    log dir."""
     import glob
     import gzip
     import json
@@ -79,23 +78,36 @@ def summarize_trace(log_dir: str, top: int = 25, steady_frac: float = 0.5):
     if not paths:
         raise FileNotFoundError(f"no *.trace.json.gz under {log_dir}")
     with gzip.open(paths[-1], "rt") as f:
-        trace = json.load(f)
-    events = trace.get("traceEvents", [])
+        return json.load(f).get("traceEvents", [])
 
-    # Device lanes: processes whose name mentions TPU/TensorCore; fall back
-    # to every complete event if the metadata is absent.
-    device_pids = {
-        e["pid"]
-        for e in events
+
+def device_events(events, prefix: str = GPU_PLANE_PREFIX) -> list:
+    """Complete events on device lanes: processes whose name starts with
+    `prefix` (the GPU planes, "/device:GPU:<n>"). Raises if the trace has
+    no such process — host-only traces must not pass for device time."""
+    pids = {
+        e["pid"] for e in events
         if e.get("ph") == "M" and e.get("name") == "process_name"
-        and any(k in e.get("args", {}).get("name", "")
-                for k in ("TPU", "Tensor", "/device:"))
+        and e.get("args", {}).get("name", "").startswith(prefix)
     }
-    xs = [
-        e for e in events
-        if e.get("ph") == "X" and e.get("dur")
-        and (not device_pids or e.get("pid") in device_pids)
-    ]
+    if not pids:
+        names = sorted({e.get("args", {}).get("name", "") for e in events
+                        if e.get("name") == "process_name"})
+        raise ValueError(f"trace has no {prefix}* plane (planes: {names})")
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("dur") and e.get("pid") in pids]
+
+
+def summarize_trace(log_dir: str, top: int = 25, steady_frac: float = 0.5,
+                    events=None):
+    """Per-kernel device-time table of a device_trace() log dir.
+
+    Groups the GPU planes' complete events by name, keeping only the
+    steady tail of the trace (`steady_frac` of the device span — skips
+    warm-up at the front). Returns a list of {"name", "total_ms", "count",
+    "pct"} sorted by total time desc; prints the top `top` rows. `events`
+    overrides reading the trace from log_dir."""
+    xs = device_events(load_trace(log_dir) if events is None else events)
     if not xs:
         raise ValueError("trace has no complete events on device lanes")
     t0 = min(e["ts"] for e in xs)
@@ -105,21 +117,8 @@ def summarize_trace(log_dir: str, top: int = 25, steady_frac: float = 0.5):
     for e in xs:
         if e["ts"] < cut:
             continue
-        name = e["name"]
-        # Runtime/host envelope events (CPU thunk executor, python frames,
-        # trace bookkeeping) aren't device ops — skip so per-op tables and
-        # the per-file attribution don't double-count the frame.
-        if "::" in name or name.startswith("$"):
-            continue
-        # Whole-program envelope events (e.g. "jit__lambda(169...)" on TPU
-        # lanes) span every op of the frame — counting them doubles the
-        # table and drowns per-op attribution.
-        if name.startswith("jit") and "(" in name:
-            continue
-        if name.startswith("end: "):  # DMA-completion markers
-            name = name[5:]
-        tot, cnt = agg.get(name, (0.0, 0))
-        agg[name] = (tot + e["dur"], cnt + 1)
+        tot, cnt = agg.get(e["name"], (0.0, 0))
+        agg[e["name"]] = (tot + e["dur"], cnt + 1)
     total = sum(t for t, _ in agg.values())
     rows = [
         {"name": n, "total_ms": t / 1e3, "count": c,
@@ -133,63 +132,42 @@ def summarize_trace(log_dir: str, top: int = 25, steady_frac: float = 0.5):
     return rows
 
 
-def hlo_source_map(hlo_text: str) -> dict:
-    """Parse optimized-HLO text into {instruction_name: source_file}.
+# Pallas kernels appear in the trace under their `name=`; they belong to
+# the stage that issues them.
+KERNEL_STAGES = {"trace_closest": "trace", "trace_occluded": "trace"}
 
-    Compiled HLO instructions carry `metadata={op_name=... source_file=...
-    source_line=N}`; the device trace's complete-event names are the HLO
-    instruction names, so this map joins profiler rows back to repo files
-    (the docs/PERFORMANCE.md round-3 per-file budget workflow, made
-    repeatable). Fusions attribute to their representative op's source —
-    imperfect but stable round over round.
-    """
-    import re
 
+def kernel_name(hlo_name: str) -> str:
+    """The GPU kernel name XLA gives an HLO instruction: "." and "-"
+    become "_" (loop_add_fusion.3 -> loop_add_fusion_3)."""
+    return re.sub(r"[^A-Za-z0-9_]", "_", hlo_name)
+
+
+def hlo_stage_map(hlo_text: str, stages=STAGES) -> dict:
+    """{kernel name: innermost named stage} from compiled-HLO text (each
+    instruction's metadata op_name is its jax.named_scope path)."""
+    pat = re.compile(r"%?([\w\-.]+)\s*=.*?op_name=\"([^\"]+)\"")
     out = {}
-    pat = re.compile(
-        r"%?([\w\-.]+)\s*=.*?source_file=\"([^\"]+)\"")
-    # Newer XLA emits stack_frame_id instead of inline source_file; the
-    # op_name path still carries the render_frame stage named_scopes
-    # (pipeline.py: ris_pass/final_pass/taa/denoise/postprocess), so fall
-    # back to mapping each instruction to its stage scope.
-    pat_op = re.compile(r"%?([\w\-.]+)\s*=.*?op_name=\"([^\"]+)\"")
-    stage_pat = re.compile(
-        r"\b(ris_pass|final_pass|taa|denoise|postprocess)\b")
     for line in hlo_text.splitlines():
         m = pat.search(line)
-        if m:
-            out[m.group(1)] = m.group(2)
+        if not m:
             continue
-        m = pat_op.search(line)
-        if m:
-            s = stage_pat.search(m.group(2))
-            out[m.group(1)] = f"stage:{s.group(1)}" if s else "<no-stage>"
+        parts = [p for p in m.group(2).split("/") if p in stages]
+        out[kernel_name(m.group(1))] = parts[-1] if parts else "<other>"
     return out
 
 
-def attribute_rows(rows, srcmap: dict, repo_root: str = "/root/repo"):
-    """Aggregate summarize_trace() rows by source file via hlo_source_map.
-    Returns [{"file", "total_ms", "pct"}] sorted desc; prints the table."""
-    agg: dict = {}
-    total = sum(r["total_ms"] for r in rows) or 1.0
+def stage_table(rows, stage_of: dict, frames: int) -> dict:
+    """{stage: device ms per frame} from summarize_trace rows, joining
+    kernel names to hlo_stage_map; Pallas kernels by KERNEL_STAGES."""
+    out: dict = {}
     for r in rows:
-        src = srcmap.get(r["name"])
-        if src is None:
-            # Trace names sometimes carry a suffix/prefix the HLO lacks;
-            # retry with the trailing ".N" stripped.
-            base = r["name"].rsplit(".", 1)[0]
-            cands = [v for k, v in srcmap.items()
-                     if k == base or k.startswith(r["name"])]
-            src = cands[0] if cands else "<unmapped>"
-        if src.startswith(repo_root):
-            src = src[len(repo_root) + 1:]
-        agg[src] = agg.get(src, 0.0) + r["total_ms"]
-    out = [{"file": f, "total_ms": t, "pct": 100.0 * t / total}
-           for f, t in agg.items()]
-    out.sort(key=lambda r: -r["total_ms"])
-    for r in out:
-        print(f"{r['total_ms']:9.2f} ms {r['pct']:5.1f}%  {r['file']}")
-    return out
+        name = r["name"]
+        st = stage_of.get(name) or next(
+            (v for k, v in KERNEL_STAGES.items() if name.startswith(k)),
+            "<unmapped>")
+        out[st] = out.get(st, 0.0) + r["total_ms"] / frames
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def stage_timings(scene, cfg, state, mats, accel=None, repeats: int = 3):

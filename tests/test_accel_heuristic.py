@@ -135,9 +135,10 @@ class TestHeuristicWiring:
 
     def test_auto_big_single_mesh_picks_binned(self):
         """tracer="auto" resolves big single-instance meshes to the binned
-        stream tracer (stack walks collapse on big trees — measured
-        crossovers in config.py)."""
+        stream tracer (stack walks collapse on big trees): the Renderer's
+        accel and trace.resolve_tracer (which provenance records) agree."""
         from sunray_tpu.ops.binned_trace import ClusterSet
+        from sunray_tpu.render.trace import resolve_tracer
         from sunray_tpu.scene.types import identity_transform
 
         r = Renderer(CFG.replace(tracer="auto", brute_force_max_tris=4))
@@ -150,13 +151,15 @@ class TestHeuristicWiring:
         r.scene = mgr.build(r._instances)
         accel = r._scene_accel()
         assert isinstance(accel, ClusterSet)
+        assert resolve_tracer(r.config, r.scene) == "binned"
         # Cache key holds the live scene object: same scene -> same accel.
         assert r._scene_accel() is accel
 
     def test_auto_big_blas_overrides_bvh2(self):
         """Even a multi-instance scene goes binned when one mesh's BLAS
-        would exceed bvh2_blas_max_tris."""
+        would exceed bvh2_blas_max_tris (and resolve_tracer says so)."""
         from sunray_tpu.ops.binned_trace import ClusterSet
+        from sunray_tpu.render.trace import resolve_tracer
 
         r = managed_renderer()
         r.config = r.config.replace(
@@ -164,6 +167,10 @@ class TestHeuristicWiring:
         )
         r._build_frame_fn()
         assert isinstance(r._scene_accel(), ClusterSet)
+        assert resolve_tracer(r.config, r.scene) == "binned"
+        # A generous BLAS cap flips the same scene to the two-level path.
+        assert resolve_tracer(r.config.replace(bvh2_blas_max_tris=10**6),
+                              r.scene) == "bvh2"
 
     def test_render_path_threads_heuristic(self):
         """Full frames with a moving instance: images stay finite and the

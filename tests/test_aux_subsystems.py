@@ -135,50 +135,34 @@ class TestHloDump:
 
 
 class TestProvenance:
-    """utils/provenance.exec_paths mirrors the real dispatch predicates —
-    drift here means bench JSON records the wrong execution path."""
+    """utils/provenance.exec_paths reports the dispatch the frame really
+    takes: the tracer from render/trace.resolve_tracer (shared with the
+    Renderer) and, on the brute path only, the trace kernel — the Triton
+    kernel in programs compiled for the GPU, the jnp planes elsewhere."""
 
     def test_mirrors_dispatch_predicates(self):
         from sunray_tpu.config import RenderConfig
-        from sunray_tpu.ops.pallas_restir import (
-            MAX_LIGHTS,
-            ONEHOT_MAX,
-            kernel_max_lights,
-            ris_fetch_mode,
-        )
+        from sunray_tpu.render import trace
         from sunray_tpu.utils.provenance import exec_paths
 
-        assert kernel_max_lights() == ONEHOT_MAX
-        assert ris_fetch_mode(MAX_LIGHTS) == "select"
-        assert ris_fetch_mode(MAX_LIGHTS + 1) == "onehot"
-        assert ris_fetch_mode(ONEHOT_MAX) == "onehot"
-        assert ris_fetch_mode(ONEHOT_MAX + 1) == "presampled"
-
+        scene = cornell_box()
         cfg = RenderConfig(lighting="restir")
-        # On TPU both fused kernels engage at ANY light count (round 4
-        # lifted the 32-light cap); the fetch strategy is recorded.
-        ep = exec_paths(cfg, num_lights=2, backend="tpu")
-        assert ep["ris_audition"] == "pallas-fused"
-        assert ep["ris_fetch"] == "select"
-        assert ep["di_spatial"] == "pallas-fused"
-        ep = exec_paths(cfg, num_lights=300, backend="tpu")
-        assert ep["ris_audition"] == "pallas-fused"
-        assert ep["ris_fetch"] == "onehot"
-        assert ep["di_spatial"] == "pallas-fused"
-        ep = exec_paths(cfg, num_lights=65536, backend="tpu")
-        assert ep["ris_fetch"] == "presampled"
-        # Differentiable frames route gradients through the jnp planes
-        # (gbuffer.py kernel="jnp", pathtrace use_di_kernel predicate) —
-        # including the image kernels (render/pipeline.py).
-        ep = exec_paths(cfg.replace(differentiable=True), 2, backend="tpu")
-        assert ep["ris_audition"] == "jnp"
-        assert ep["di_spatial"] == "jnp"
-        assert ep["denoise"] == "jnp"
-        # CPU backend never runs the TPU kernels.
-        ep = exec_paths(cfg, 2, backend="cpu")
-        assert ep["ris_audition"] == "jnp"
-        # Per-pixel taps keep DI spatial on the jnp oracle path.
-        ep = exec_paths(cfg.replace(spatial_taps="perpixel"), 2,
-                        backend="tpu")
-        assert ep["di_spatial"] == "jnp"
-        assert ep["ris_audition"] == "pallas-fused"
+        assert exec_paths(cfg, scene, "gpu") == {
+            "tracer": "brute", "trace_kernel": "pallas",
+            "num_tris": int(scene.num_tris),
+        }
+        assert exec_paths(cfg, scene, "cpu")["trace_kernel"] == "xla"
+        # make_tracer takes the brute path for the same config.
+        ctx = trace.make_tracer(scene, cfg)
+        assert ctx.bvh is None and ctx.bvh2 is None and ctx.binned is None
+        # Above the crossover the kernel choice does not apply; Cornell's
+        # several small instances resolve to the two-level tracer.
+        small = cfg.replace(brute_force_max_tris=4)
+        ep = exec_paths(small, scene, "gpu")
+        assert ep["tracer"] == "bvh2" and ep["trace_kernel"] == "-"
+        assert trace.make_tracer(scene, small).bvh is not None
+        ep = exec_paths(cfg.replace(tracer="bvh"), scene, "gpu")
+        assert ep == {"tracer": "bvh", "trace_kernel": "-",
+                      "num_tris": int(scene.num_tris)}
+        assert exec_paths(cfg.replace(tracer="bvh"), scene,
+                          "cpu")["trace_kernel"] == "-"

@@ -1,7 +1,7 @@
-"""Banded VMEM-sized history gathers (ops/banded.py).
+"""Banded history gathers (ops/banded.py).
 
-The banded path is a TPU-only execution strategy; these tests force it on
-(force=True) on the CPU backend and check it is exact against the plain
+The banded path is taken only when forced (force=True); these tests force
+it and check it is exact against the plain
 gather wherever the source row is within the halo, and that the in-band
 mask flags exactly the lanes it cannot serve.
 """
@@ -363,93 +363,3 @@ def test_auto_gather_jitter_window_branch_exact():
                                force=True, global_motion=True)
     np.testing.assert_array_equal(np.asarray(ok), True)
     np.testing.assert_allclose(np.asarray(rows), np.asarray(table[idx]))
-
-
-class TestWindowSelectKernel:
-    """Pallas window-select fast path (ops/pallas_window.py +
-    banded.auto_row_gather_t): interpret-mode exactness vs the jnp
-    shift/plain formulations. Sizes chosen so P >= the kernel's minimum
-    window (block + span + 2*ALIGN)."""
-
-    W, H, C = 128, 300, 5          # P = 38400 >= 33282 (radius-1 window)
-
-    def _table(self, seed=0):
-        rng = np.random.default_rng(seed)
-        p = self.W * self.H
-        return jnp.asarray(rng.normal(size=(self.C, p)).astype(np.float32))
-
-    def _padded(self, tbl):
-        from sunray_tpu.ops.pallas_window import build_table
-
-        return build_table([tbl], tbl.shape[1])
-
-    def test_window_select_exact(self):
-        from sunray_tpu.ops.pallas_window import window_select_t
-
-        rng = np.random.default_rng(1)
-        p = self.W * self.H
-        tbl = self._table()
-        taps = [0, -1, -self.W, -self.W - 1]
-        g = 3 * self.W + 2
-        key_np = rng.integers(-1, len(taps), size=p).astype(np.int32)
-        out = np.asarray(window_select_t(self._padded(tbl),
-                                         jnp.asarray(key_np),
-                                         jnp.int32(g), taps, p))[:self.C]
-        tbl_np = np.asarray(tbl)
-        src = np.arange(p) + g + np.array(taps + [0])[key_np]
-        sel = (key_np >= 0) & (src >= 0) & (src < p)
-        np.testing.assert_array_equal(out[:, sel], tbl_np[:, src[sel]])
-
-    @pytest.mark.parametrize("motion", ["static", "pan", "jitter"])
-    def test_auto_ladder_matches_plain(self, motion):
-        from sunray_tpu.ops.banded import auto_row_gather_t
-
-        rng = np.random.default_rng(2)
-        p = self.W * self.H
-        tbl = self._table()
-        dst = np.arange(p)
-        if motion == "static":
-            idx = dst.copy()
-        elif motion == "pan":
-            idx = dst + 5 * self.W + 3          # uniform motion
-        else:
-            idx = dst + rng.integers(-1, 1, size=p, endpoint=True) * self.W \
-                + rng.integers(-1, 1, size=p, endpoint=True)
-        valid = (idx >= 0) & (idx < p)
-        idxc = jnp.asarray(np.clip(idx, 0, p - 1).astype(np.int32))
-        rows_t, ok = auto_row_gather_t(self._padded(tbl), idxc,
-                                       self.W, band=16, halo=16,
-                                       radius=1,
-                                       valid=jnp.asarray(valid))
-        rows_t, ok = np.asarray(rows_t)[:self.C], np.asarray(ok)
-        tbl_np = np.asarray(tbl)
-        served = ok & valid
-        assert served.mean() > 0.5
-        np.testing.assert_array_equal(
-            rows_t[:, served], tbl_np[:, np.clip(idx, 0, p - 1)[served]]
-        )
-
-    def test_auto_ladder_banded_fallback(self):
-        """Non-uniform motion beyond the radius flips the ladder to the
-        banded branch, which stays exact within its halo."""
-        from sunray_tpu.ops.banded import auto_row_gather_t
-
-        rng = np.random.default_rng(3)
-        p = self.W * self.H
-        tbl = self._table()
-        dst = np.arange(p)
-        idx = dst + rng.integers(-4, 4, size=p, endpoint=True) * self.W \
-            + rng.integers(-4, 4, size=p, endpoint=True)
-        valid = (idx >= 0) & (idx < p)
-        idxc = jnp.asarray(np.clip(idx, 0, p - 1).astype(np.int32))
-        rows_t, ok = auto_row_gather_t(self._padded(tbl), idxc,
-                                       self.W, band=16, halo=16,
-                                       radius=1,
-                                       valid=jnp.asarray(valid))
-        rows_t, ok = np.asarray(rows_t)[:self.C], np.asarray(ok)
-        served = ok & valid
-        assert served.mean() > 0.9
-        np.testing.assert_array_equal(
-            rows_t[:, served],
-            np.asarray(tbl)[:, np.clip(idx, 0, p - 1)[served]],
-        )

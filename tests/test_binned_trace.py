@@ -398,3 +398,61 @@ class TestPairStream:
         ref = intersect.trace_occluded_brute(tris, o, d, tmax, exclude=ex)
         got = bt.trace_occluded_pairs(cs, o, d, tmax, exclude=ex)
         np.testing.assert_array_equal(np.asarray(ref), np.asarray(got))
+
+
+class TestRoundBody:
+    """The jnp round body (gather each work item's ray block and cluster,
+    Moller-Trumbore, segment-reduce into ray blocks) with EVERY
+    (block, cluster) pair as work equals brute force: same hits and
+    triangles, t to float rounding."""
+
+    @pytest.mark.parametrize("closest", [True, False])
+    def test_all_pairs_round_matches_brute(self, closest):
+        tris = random_scene(300, seed=5)
+        cs = bt.build_cluster_set(tris, k=128)
+        orig, d = random_rays(700, seed=6)
+        tmax = jnp.full((700,), 5.0)
+        ex = jnp.full((700,), -1, jnp.int32)
+        o_t, d_t, tn, tx, ex_t, n, nb = bt._prep(
+            orig, d, intersect.T_MIN, tmax if not closest else 1e4, ex)
+        c = cs.num_clusters
+        pairs = jnp.arange(nb * c, dtype=jnp.int32)
+        n_out = bt._OUT_SPECS_CLOSEST if closest else bt._OUT_SPECS_ANYHIT
+        outs = bt._round_call(n_out, pairs // c, pairs % c, o_t, d_t, tn,
+                              tx, ex_t, cs.tri_pack, nb)
+        assert np.all(np.asarray(outs[-1]) == 1.0)      # every block touched
+        if closest:
+            ref = intersect.trace_closest_brute(tris, orig, d)
+            t, tri = np.asarray(outs[0][0, :n]), np.asarray(outs[1][0, :n])
+            np.testing.assert_array_equal(tri >= 0, np.asarray(ref.hit))
+            h = np.asarray(ref.hit)
+            np.testing.assert_array_equal(tri[h], np.asarray(ref.tri)[h])
+            np.testing.assert_allclose(t[h], np.asarray(ref.t)[h], rtol=1e-6)
+        else:
+            ref = intersect.trace_occluded_brute(tris, orig, d, tmax)
+            np.testing.assert_array_equal(np.asarray(outs[0][0, :n]) > 0,
+                                          np.asarray(ref))
+
+    def test_scan_records_first_hits_in_order(self):
+        """_scan_rays: slots hold each ray's first hit ids ascending, and
+        the count is exact (checked against a per-ray numpy slab test)."""
+        rng = np.random.default_rng(9)
+        lo = rng.uniform(-3, 2, (40, 3)).astype(np.float32)
+        ab = np.concatenate([lo, lo + rng.uniform(0.2, 1.5, (40, 3))],
+                            axis=1).astype(np.float32)
+        o, d = (np.asarray(x) for x in random_rays(64, seed=10, spread=3.0))
+        ray = np.concatenate([o, d, np.full((64, 1), 1e-3, np.float32),
+                              np.full((64, 1), 50.0, np.float32)], axis=1)
+        slots, cnt = bt._scan_rays(jnp.asarray(ray), jnp.asarray(ab), 40, 4)
+        slots, cnt = np.asarray(slots), np.asarray(cnt)
+        for r in range(64):
+            inv = 1.0 / np.where(np.abs(d[r]) < 1e-12, 1e-12, d[r])
+            t1 = (ab[:, :3] - o[r]) * inv
+            t2 = (ab[:, 3:] - o[r]) * inv
+            tn_ = np.minimum(t1, t2).max(axis=1)
+            tf_ = np.maximum(t1, t2).min(axis=1)
+            hit = np.nonzero((tn_ <= tf_ + 1e-4) & (tf_ >= 1e-3 - 1e-4)
+                             & (tn_ <= 50.0 + 1e-4))[0]
+            assert cnt[r] == hit.size
+            want = list(hit[:4]) + [-1] * (4 - min(4, hit.size))
+            assert list(slots[r]) == want

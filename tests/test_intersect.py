@@ -131,31 +131,3 @@ class TestCornellGeometry:
         np.testing.assert_allclose(np.asarray(lrgb), 15.0 * np.ones((2, 3)), rtol=1e-6)
         # light sits just below the ceiling
         assert np.allclose(np.asarray(lv)[..., 1], 1.99)
-
-
-class TestWoopOcclusionAgreement:
-    """trace_occluded_woop (MXU Woop-transform kernel, cfg.trace_impl=
-    "woop") computes the same intersection predicate as the Moller-
-    Trumbore kernel through a different factorization — agreement pinned
-    on random geometry/rays (grazing-edge float flips would show here)."""
-
-    def test_agrees_with_mt(self):
-        import numpy as np
-        from sunray_tpu.ops import pallas_trace as pt
-
-        rng = np.random.default_rng(0)
-        t, n = 36, 4096
-        v0 = jnp.asarray(rng.normal(size=(t, 3)).astype(np.float32))
-        v1 = v0 + jnp.asarray(rng.normal(size=(t, 3)).astype(np.float32))
-        v2 = v0 + jnp.asarray(rng.normal(size=(t, 3)).astype(np.float32))
-        tris = (v0, v1, v2)
-        o = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32)) * 2
-        d = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-        tmax = jnp.abs(jnp.asarray(rng.normal(size=(n,)).astype(np.float32))) * 3
-        ex = jnp.asarray(rng.integers(-1, t, size=n).astype(np.int32))
-        for kw in ({}, {"exclude": ex}):
-            a = np.asarray(pt.trace_occluded_pallas(tris, o, d, tmax, **kw))
-            b = np.asarray(pt.trace_occluded_woop(tris, o, d, tmax, **kw))
-            agree = (a == b).mean()
-            assert agree >= 0.9995, agree
-            assert 0.05 < a.mean() < 0.5  # the scene actually occludes

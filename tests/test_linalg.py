@@ -1,6 +1,6 @@
-"""ops/linalg gather helpers: the select-chain path is TPU-gated in
-production, so these tests force it on CPU and pin its semantics against
-the plain dynamic-gather path."""
+"""ops/linalg gather helpers: the select-chain path is taken only when
+forced (force_select=True); these tests pin its semantics against the
+plain dynamic-gather path."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +36,7 @@ def test_select_chain_row_limit_falls_back():
     k = SELECT_GATHER_MAX_ROWS + 1
     table = jnp.asarray(np.random.default_rng(1).normal(size=(k, 2)).astype(np.float32))
     idx = jnp.asarray([0, k - 1], np.int32)
-    # Above the row cap the TPU gate falls back to plain gathers even when
-    # forced (the chain would bloat compiles); result must still be exact.
+    # Above the row cap the select chain falls back to plain gathers even
+    # when forced (the chain would bloat compiles); result must still be exact.
     out = gather_cols(table, idx, force_select=True)
     np.testing.assert_allclose(np.asarray(out[0]), np.asarray(table[idx, 0]))

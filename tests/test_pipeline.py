@@ -215,8 +215,8 @@ class TestPerPixelSpatialTaps:
     def test_perpixel_matches_shapes_and_stays_finite(self):
         """spatial_taps='perpixel' (the reference's exact per-pixel disc
         draws, ray_gen_final.slang:164-167) through the full frame; the
-        neighbor reads run through the banded packed gather on TPU and the
-        plain gather here on CPU."""
+        neighbor reads run through the plain packed gather unless the
+        banded path is forced."""
         import numpy as np
 
         cfg = small_cfg(lighting="restir", spatial_taps="perpixel")
@@ -232,7 +232,7 @@ class TestPerPixelSpatialTaps:
         assert img.mean() > 0.02
 
     def test_perpixel_banded_matches_plain_gather(self):
-        """Forcing the banded path (as on TPU) must not change perpixel
+        """Forcing the banded path must not change perpixel
         spatial reuse: the disc radius fits inside the halo, so every
         in-bounds neighbor is in-band."""
         import numpy as np

@@ -163,173 +163,6 @@ class TestBatchedAuditionExact:
             )
 
 
-class TestPallasAuditionMatches:
-    """The fused Pallas audition (ops/pallas_restir.py) vs the jnp plane
-    formulation: same draws, same op order — differences bounded at FMA
-    noise with a take-flip allowance (cf. TestBatchedAuditionExact)."""
-
-    def test_matches_jnp(self):
-        from sunray_tpu.ops.pallas_restir import ris_audition_pallas
-
-        p = 4096
-        scene = cornell_box()
-        lights = restir.Lights(scene)
-        rng = np.random.default_rng(10)
-        pos = jnp.asarray(rng.uniform(0, 2, (p, 3)), jnp.float32)
-        n = rng.normal(size=(p, 3)); n /= np.linalg.norm(n, axis=1,
-                                                         keepdims=True)
-        v = rng.normal(size=(p, 3)); v /= np.linalg.norm(v, axis=1,
-                                                         keepdims=True)
-        n = jnp.asarray(n, jnp.float32)
-        v = jnp.asarray(v, jnp.float32)
-        alb = jnp.asarray(rng.uniform(0, 1, (p, 3)), jnp.float32)
-        rough = jnp.asarray(rng.uniform(0.05, 1, (p,)), jnp.float32)
-        metal = jnp.asarray(rng.uniform(0, 1, (p,)), jnp.float32)
-        seed0 = jnp.asarray(rng.integers(0, 2**32, p, dtype=np.uint32))
-        enable = jnp.asarray(rng.random(p) > 0.2)
-
-        s_j, r_j = restir.ris_audition(
-            lights, seed0, pos, n, v, alb, rough, metal, 16, enable,
-            kernel="jnp",
-        )
-        s_p, f_p = ris_audition_pallas(
-            lights.v0, lights.v1, lights.v2, lights.emission, seed0,
-            pos, n, v, alb, rough, metal, 16, enable,
-        )
-        np.testing.assert_array_equal(np.asarray(s_p), np.asarray(s_j))
-        # Scalar accumulators: tight tolerance; field agreement allows
-        # take-flips on ulp-level p_hat differences.
-        np.testing.assert_allclose(np.asarray(f_p["w_sum"]),
-                                   np.asarray(r_j.w_sum), rtol=5e-4,
-                                   atol=1e-6)
-        np.testing.assert_array_equal(np.asarray(f_p["M"]),
-                                      np.asarray(r_j.M))
-        agree = (np.asarray(f_p["light_idx"])
-                 == np.asarray(r_j.light_idx)).mean()
-        assert agree > 0.995, f"winner agreement {agree}"
-        same = np.asarray(f_p["light_idx"]) == np.asarray(r_j.light_idx)
-        np.testing.assert_allclose(
-            np.asarray(f_p["light_pos"])[same],
-            np.asarray(r_j.light_pos)[same], rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(f_p["W"])[same], np.asarray(r_j.W)[same],
-            rtol=3e-4, atol=1e-5)
-
-
-class TestPallasDiSpatialMatches:
-    """ops/pallas_restir.di_spatial_pallas vs the jnp center-merge +
-    tap-merge + resolve chain on synthetic reservoirs (interpret mode)."""
-
-    def test_matches_jnp_chain(self):
-        import jax
-
-        from sunray_tpu.ops import rng as rng_mod
-        from sunray_tpu.ops.pallas_restir import di_spatial_pallas
-
-        p = 4096
-        scene = cornell_box()
-        lights = restir.Lights(scene)
-        L = lights.num
-        rng = np.random.default_rng(21)
-
-        def mk_res(seed):
-            r2 = np.random.default_rng(seed)
-            idx = r2.integers(0, L, p).astype(np.int32)
-            lv = np.asarray(lights.v0)
-            pos = lv[idx] + r2.normal(0, 0.01, (p, 3)).astype(np.float32)
-            nrm = np.tile(np.asarray([0.0, -1.0, 0.0], np.float32), (p, 1))
-            return dict(
-                light_pos=jnp.asarray(pos, jnp.float32),
-                light_normal=jnp.asarray(nrm),
-                W=jnp.asarray(r2.uniform(0, 30, p), jnp.float32),
-                M=jnp.asarray(r2.uniform(0, 15, p), jnp.float32),
-                light_idx=jnp.asarray(idx),
-                # The caller-gathered per-pixel light emission (round 4:
-                # replaces the kernel's in-VMEM light table).
-                emission=jnp.asarray(np.asarray(lights.emission)[idx]),
-            )
-
-        pos = jnp.asarray(rng.uniform(0.2, 1.8, (p, 3)), jnp.float32)
-        n = rng.normal(size=(p, 3)); n /= np.linalg.norm(n, axis=1,
-                                                         keepdims=True)
-        v = rng.normal(size=(p, 3)); v /= np.linalg.norm(v, axis=1,
-                                                         keepdims=True)
-        n = jnp.asarray(n, jnp.float32)
-        v = jnp.asarray(v, jnp.float32)
-        alb = jnp.asarray(rng.uniform(0, 1, (p, 3)), jnp.float32)
-        rough = jnp.asarray(rng.uniform(0.05, 1, (p,)), jnp.float32)
-        metal = jnp.asarray(rng.uniform(0, 1, (p,)), jnp.float32)
-        pending = jnp.asarray(rng.random(p) > 0.2)
-        seed0 = jnp.asarray(rng.integers(0, 2**32, p, dtype=np.uint32))
-
-        center = mk_res(1)
-        taps = [(mk_res(2), jnp.asarray(rng.random(p) > 0.3)),
-                (mk_res(3), jnp.asarray(rng.random(p) > 0.3))]
-        clamps = (20.0, 10.0, 10.0, L)
-
-        s_k, outk = di_spatial_pallas(
-            seed0, center, taps, pending, pos, n, v, alb, rough, metal,
-            clamps,
-        )
-
-        # jnp reference chain (merge_di semantics). The emission entry is
-        # kernel-input-only (not a ReservoirDI field).
-        def as_res(f):
-            f2 = {k: v for k, v in f.items() if k != "emission"}
-            return restir.ReservoirDI.empty(p).replace(**f2)
-
-        c = as_res(center)
-        c_ok = pending & (c.W > 0.0) & (c.light_idx < L)
-        c = c.replace(light_idx=jnp.minimum(c.light_idx, L - 1))
-        p_hat_c, _ = lights.eval_p_hat(
-            c.light_idx, c.light_pos, c.light_normal,
-            pos, n, v, alb, rough, metal)
-        seed, u_m = rng_mod.rnd(seed0)
-        spatial = restir.merge_di(restir.ReservoirDI.empty(p), c,
-                                  p_hat_c, u_m, c_ok)
-        for f, ok in taps:
-            nr = as_res(f)
-            nr = nr.replace(W=jnp.minimum(nr.W, clamps[0]),
-                            M=jnp.minimum(nr.M, clamps[1]))
-            use = pending & ok & (nr.W > 0.0) & (nr.light_idx < L)
-            nr = nr.replace(light_idx=jnp.minimum(nr.light_idx, L - 1))
-            p_hat_n, _ = lights.eval_p_hat(
-                nr.light_idx, nr.light_pos, nr.light_normal,
-                pos, n, v, alb, rough, metal)
-            seed, u = rng_mod.rnd(seed)
-            spatial = restir.merge_di(spatial, nr, p_hat_n, u, use)
-        has = pending & (spatial.w_sum > 0.0)
-        p_hat_w, f_y_w = lights.eval_p_hat(
-            spatial.light_idx, spatial.light_pos, spatial.light_normal,
-            pos, n, v, alb, rough, metal)
-        w_spatial = jnp.minimum(
-            spatial.w_sum / jnp.maximum(spatial.M * p_hat_w, 1e-3),
-            clamps[2])
-
-        np.testing.assert_array_equal(np.asarray(s_k), np.asarray(seed))
-        np.testing.assert_allclose(np.asarray(outk["w_sum"]),
-                                   np.asarray(spatial.w_sum),
-                                   rtol=5e-4, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(outk["M"]),
-                                   np.asarray(spatial.M), rtol=1e-6,
-                                   atol=0)
-        agree = (np.asarray(outk["light_idx"])
-                 == np.asarray(spatial.light_idx)).mean()
-        assert agree > 0.99, f"winner agreement {agree}"
-        same = (np.asarray(outk["light_idx"])
-                == np.asarray(spatial.light_idx))
-        same &= np.abs(np.asarray(outk["light_pos"])
-                       - np.asarray(spatial.light_pos)).max(-1) < 1e-5
-        np.testing.assert_allclose(np.asarray(outk["w_spatial"])[same],
-                                   np.asarray(w_spatial)[same],
-                                   rtol=1e-3, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(outk["f_y_w"])[same],
-                                   np.asarray(f_y_w)[same],
-                                   rtol=1e-3, atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(outk["has"])[same],
-                                      np.asarray(has)[same])
-
-
 class TestJointTemporalGather:
     """gather_temporal_histories (cfg.history_joint_gather): ONE packed
     banded gather for both temporal histories must reproduce, leaf for
@@ -408,370 +241,3 @@ class TestJointTemporalGather:
             img = np.asarray(r.render(cam))
         assert np.isfinite(img).all()
         assert img.max() > 0.01
-
-
-class TestManyLightAudition:
-    """Round 4 lifted the fused audition's 32-light cap: 33..512 lights
-    fetch via the in-kernel one-hot MXU (EXACT — same candidate
-    distribution as the reference's uniform sampling), larger tables via
-    RTXDI-style presampled tiles (unbiased two-level RIS, intra-block
-    correlation only). ray_gen_ris.slang:189-231; resource_manager.rs:14
-    (the reference's 65,536-slot emissive arena)."""
-
-    @staticmethod
-    def _fake_lights(n_lights, seed=3):
-        rng = np.random.default_rng(seed)
-        v0 = rng.uniform(-4, 4, (n_lights, 3)).astype(np.float32)
-        v0[:, 1] = 3.0
-        e1 = rng.uniform(0.05, 0.4, (n_lights, 3)).astype(np.float32)
-        e2 = rng.uniform(0.05, 0.4, (n_lights, 3)).astype(np.float32)
-        em = rng.uniform(0.5, 8.0, (n_lights, 3)).astype(np.float32)
-        lights = restir.Lights.__new__(restir.Lights)
-        lights.v0 = jnp.asarray(v0)
-        lights.v1 = jnp.asarray(v0 + e1)
-        lights.v2 = jnp.asarray(v0 + e2)
-        lights.emission = jnp.asarray(em)
-        lights.num = n_lights
-        lights.world_tri = jnp.arange(n_lights, dtype=jnp.int32)
-        return lights
-
-    @staticmethod
-    def _attrs(p, seed=11):
-        rng = np.random.default_rng(seed)
-        pos = jnp.asarray(
-            np.tile(np.asarray([0.5, 1.0, 0.5], np.float32), (p, 1)))
-        n = jnp.asarray(
-            np.tile(np.asarray([0.0, 1.0, 0.0], np.float32), (p, 1)))
-        v = jnp.asarray(
-            np.tile(np.asarray([0.0, 0.7071, 0.7071], np.float32), (p, 1)))
-        alb = jnp.full((p, 3), 0.6, jnp.float32)
-        rough = jnp.full((p,), 0.4, jnp.float32)
-        metal = jnp.full((p,), 0.1, jnp.float32)
-        seeds = jnp.asarray(rng.integers(0, 2**32, p, dtype=np.uint32))
-        enable = jnp.ones((p,), bool)
-        return pos, n, v, alb, rough, metal, seeds, enable
-
-    def test_onehot_fetch_matches_jnp(self):
-        """100 lights (> the 32 select-chain cap, <= ONEHOT_MAX): the
-        one-hot MXU fetch is exact — same tolerances as the <=32 test."""
-        from sunray_tpu.ops.pallas_restir import (
-            ris_audition_pallas,
-            ris_fetch_mode,
-        )
-
-        assert ris_fetch_mode(100) == "onehot"
-        p = 4096
-        lights = self._fake_lights(100)
-        pos, n, v, alb, rough, metal, seeds, enable = self._attrs(p)
-
-        s_j, r_j = restir.ris_audition(
-            lights, seeds, pos, n, v, alb, rough, metal, 16, enable,
-            kernel="jnp",
-        )
-        s_p, f_p = ris_audition_pallas(
-            lights.v0, lights.v1, lights.v2, lights.emission, seeds,
-            pos, n, v, alb, rough, metal, 16, enable,
-        )
-        np.testing.assert_array_equal(np.asarray(s_p), np.asarray(s_j))
-        np.testing.assert_array_equal(np.asarray(f_p["M"]),
-                                      np.asarray(r_j.M))
-        np.testing.assert_allclose(np.asarray(f_p["w_sum"]),
-                                   np.asarray(r_j.w_sum), rtol=5e-4,
-                                   atol=1e-6)
-        agree = (np.asarray(f_p["light_idx"])
-                 == np.asarray(r_j.light_idx)).mean()
-        assert agree > 0.995, f"winner agreement {agree}"
-        same = np.asarray(f_p["light_idx"]) == np.asarray(r_j.light_idx)
-        np.testing.assert_allclose(
-            np.asarray(f_p["W"])[same], np.asarray(r_j.W)[same],
-            rtol=3e-4, atol=1e-5)
-
-    @pytest.mark.slow
-    def test_presampled_unbiased_vs_exact(self):
-        """2000 lights (> ONEHOT_MAX): per-block presampled tiles. The
-        RIS normalization identity E[p_hat(y) * W] = E[w_sum] / K holds
-        for ANY candidate source whose marginal is Uniform[0, L), so the
-        presampled estimator's grand-mean w_sum over fresh-seeded rounds
-        (tiles re-drawn per round) must match the exact uniform path's.
-        Measured (2026-08-20, 12 rounds x 16k iid pixels): rel diff
-        0.029, per-round tile std 1.95 vs jnp 0.08 — tile randomness
-        dominates a single round (a 1-round check at 16k pixels reads
-        ~13% off), the grand mean converges. Deterministic seeds."""
-        from sunray_tpu.ops.pallas_restir import (
-            ris_audition_pallas,
-            ris_fetch_mode,
-        )
-
-        l_n = 2000
-        assert ris_fetch_mode(l_n) == "presampled"
-        p = 16384
-        lights = self._fake_lights(l_n)
-        pos, n, v, alb, rough, metal, seeds, enable = self._attrs(p)
-
-        # Seed-stream parity: identical per-pixel draw counts.
-        s_j = restir.ris_audition(
-            lights, seeds, pos, n, v, alb, rough, metal, 16, enable,
-            kernel="jnp")[0]
-        s_p, f_p0 = ris_audition_pallas(
-            lights.v0, lights.v1, lights.v2, lights.emission, seeds,
-            pos, n, v, alb, rough, metal, 16, enable,
-        )
-        np.testing.assert_array_equal(np.asarray(s_p), np.asarray(s_j))
-        # Global winner indices stay valid and diverse across the table.
-        idx = np.asarray(f_p0["light_idx"])
-        assert idx.min() >= 0 and idx.max() < l_n
-        assert len(np.unique(idx)) > 200
-
-        rng = np.random.default_rng(99)
-        means_j, means_t = [], []
-        for _ in range(12):
-            s = jnp.asarray(rng.integers(0, 2**32, p, dtype=np.uint32))
-            _, r_j = restir.ris_audition(
-                lights, s, pos, n, v, alb, rough, metal, 16, enable,
-                kernel="jnp",
-            )
-            _, f_p = ris_audition_pallas(
-                lights.v0, lights.v1, lights.v2, lights.emission, s,
-                pos, n, v, alb, rough, metal, 16, enable,
-            )
-            means_j.append(float(np.mean(np.asarray(r_j.w_sum))))
-            means_t.append(float(np.mean(np.asarray(f_p["w_sum"]))))
-        m_exact = float(np.mean(means_j))
-        m_tile = float(np.mean(means_t))
-        err = abs(m_tile - m_exact) / m_exact
-        assert err < 0.05, (m_exact, m_tile, err)
-
-
-class TestPallasGiSpatialMatches:
-    """ops/pallas_restir.gi_spatial_pallas vs the jnp merge + resolve
-    chain on synthetic GI reservoirs (interpret mode). Mirrors
-    TestPallasDiSpatialMatches' tolerance scheme (FMA-contraction noise
-    with a take-flip allowance)."""
-
-    def test_matches_jnp_chain(self):
-        from sunray_tpu.ops import rng as rng_mod
-        from sunray_tpu.ops.brdf import gi_target_pdf
-        from sunray_tpu.ops.pallas_restir import gi_spatial_pallas
-
-        p = 4096
-        rng = np.random.default_rng(33)
-        pos = jnp.asarray(rng.uniform(0.2, 1.8, (p, 3)), jnp.float32)
-        n = rng.normal(size=(p, 3)); n /= np.linalg.norm(n, axis=1,
-                                                         keepdims=True)
-        n = jnp.asarray(n, jnp.float32)
-        alb = jnp.asarray(rng.uniform(0, 1, (p, 3)), jnp.float32)
-        metal = jnp.asarray(rng.uniform(0, 1, (p,)), jnp.float32)
-        pending = jnp.asarray(rng.random(p) > 0.2)
-        seed0 = jnp.asarray(rng.integers(0, 2**32, p, dtype=np.uint32))
-        w_clamp = 20.0
-
-        def mk(seedv, with_tap=False):
-            r2 = np.random.default_rng(seedv)
-            d = dict(
-                sample_pos=jnp.asarray(
-                    r2.uniform(0, 2, (p, 3)), jnp.float32),
-                sample_normal=jnp.asarray(
-                    r2.normal(size=(p, 3))
-                    / np.linalg.norm(r2.normal(size=(p, 3)), axis=1,
-                                     keepdims=True), jnp.float32),
-                sample_radiance=jnp.asarray(
-                    r2.uniform(0, 4, (p, 3)), jnp.float32),
-                sample_tri=jnp.asarray(
-                    r2.integers(0, 50, p).astype(np.int32)),
-            )
-            if with_tap:
-                d.update(
-                    W=jnp.asarray(r2.uniform(0, 10, p), jnp.float32),
-                    M=jnp.asarray(r2.uniform(0, 12, p), jnp.float32),
-                    jac=jnp.asarray(r2.uniform(0, 3, p), jnp.float32),
-                    ok=jnp.asarray(r2.random(p) > 0.3),
-                )
-            else:
-                d.update(
-                    w_sum=jnp.asarray(r2.uniform(0, 20, p), jnp.float32),
-                    M=jnp.asarray(r2.uniform(0, 12, p), jnp.float32),
-                )
-            return d
-
-        center = mk(1)
-        taps = [mk(2, True), mk(3, True), mk(4, True)]
-
-        s_k, outk = gi_spatial_pallas(
-            seed0, center, taps, pending, pos, n, alb, metal, w_clamp,
-        )
-
-        # jnp reference chain (the batched-planar semantics of
-        # render/pathtrace._spatial_reuse's GI merge).
-        seed = seed0
-        w_sum = center["w_sum"]
-        m_acc = center["M"]
-        r = {k: center[k] for k in ("sample_pos", "sample_normal",
-                                    "sample_radiance", "sample_tri")}
-        for t in taps:
-            p_hat_n = gi_target_pdf(pos, n, alb, metal,
-                                    t["sample_pos"], t["sample_radiance"])
-            ok = t["ok"]
-            m_acc = m_acc + jnp.where(ok, t["M"], 0.0)
-            weight = jnp.where(ok, p_hat_n * t["W"] * t["M"] * t["jac"],
-                               0.0)
-            w_sum = w_sum + weight
-            seed, u = rng_mod.rnd(seed)
-            take = ok & (u < weight / jnp.maximum(w_sum, 1e-4))
-            for k in r:
-                tk = t[k]
-                r[k] = jnp.where(
-                    take[:, None] if tk.ndim == 2 else take, tk, r[k]
-                )
-        p_hat_f = gi_target_pdf(pos, n, alb, metal, r["sample_pos"],
-                                r["sample_radiance"])
-        w_gi = jnp.where(
-            p_hat_f > 1e-3,
-            w_sum / jnp.maximum(m_acc, 1.0) / jnp.maximum(p_hat_f, 1e-9),
-            0.0,
-        )
-        w_gi = jnp.minimum(w_gi, w_clamp)
-        gvec = r["sample_pos"] - pos
-        gdist = jnp.maximum(
-            jnp.sqrt(jnp.sum(gvec * gvec, -1)), 1e-4)
-        gdir = gvec / gdist[:, None]
-        gndl = jnp.maximum(jnp.sum(n * gdir, -1), 0.0)
-        try_gi = pending & (w_gi > 0.0) & (gndl > 0.0)
-        from sunray_tpu.ops.brdf import PI
-        f_diffuse = alb * (1.0 - metal[:, None]) / PI
-        contrib = r["sample_radiance"] * f_diffuse * (gndl * w_gi)[:, None]
-
-        np.testing.assert_array_equal(np.asarray(s_k), np.asarray(seed))
-        # Winner agreement with take-flip allowance; exact on agreeing
-        # lanes for the pure-select fields.
-        same = (np.asarray(outk["sample_tri"])
-                == np.asarray(r["sample_tri"]))
-        assert same.mean() > 0.99, same.mean()
-        np.testing.assert_allclose(
-            np.asarray(outk["gdist"])[same], np.asarray(gdist)[same],
-            rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(
-            np.asarray(outk["gdir"])[same], np.asarray(gdir)[same],
-            rtol=1e-4, atol=1e-5)
-        agree_try = (np.asarray(outk["try_gi"])[same]
-                     == np.asarray(try_gi)[same]).mean()
-        assert agree_try > 0.999, agree_try
-        np.testing.assert_allclose(
-            np.asarray(outk["contrib_pre"])[same],
-            np.asarray(contrib)[same], rtol=2e-3, atol=1e-5)
-
-
-class TestPallasDiTemporalMatches:
-    """ops/pallas_restir.di_temporal_pallas vs the jnp post-gather chain
-    (confidence gates + history p_hat + merge_di + W re-resolve) on
-    synthetic audition results and histories (interpret mode)."""
-
-    def test_matches_jnp_chain(self):
-        from sunray_tpu.ops import rng as rng_mod
-        from sunray_tpu.ops.pallas_restir import di_temporal_pallas
-
-        p = 4096
-        scene = cornell_box()
-        lights = restir.Lights(scene)
-        L = lights.num
-        rng = np.random.default_rng(55)
-
-        pos = jnp.asarray(rng.uniform(0.2, 1.8, (p, 3)), jnp.float32)
-        n = rng.normal(size=(p, 3)); n /= np.linalg.norm(n, axis=1,
-                                                         keepdims=True)
-        v = rng.normal(size=(p, 3)); v /= np.linalg.norm(v, axis=1,
-                                                         keepdims=True)
-        n = jnp.asarray(n, jnp.float32)
-        v = jnp.asarray(v, jnp.float32)
-        alb = jnp.asarray(rng.uniform(0, 1, (p, 3)), jnp.float32)
-        rough = jnp.asarray(rng.uniform(0.05, 1, (p,)), jnp.float32)
-        metal = jnp.asarray(rng.uniform(0, 1, (p,)), jnp.float32)
-        vdist = jnp.asarray(rng.uniform(0.5, 5.0, (p,)), jnp.float32)
-        ok = jnp.asarray(rng.random(p) > 0.25)
-        seed0 = jnp.asarray(rng.integers(0, 2**32, p, dtype=np.uint32))
-
-        def mk_res(seedv, with_hist=False):
-            r2 = np.random.default_rng(seedv)
-            idx = r2.integers(0, L, p).astype(np.int32)
-            lv = np.asarray(lights.v0)
-            res = restir.ReservoirDI.empty(p).replace(
-                light_pos=jnp.asarray(
-                    lv[idx] + r2.normal(0, 0.01, (p, 3)).astype(np.float32)),
-                light_normal=jnp.asarray(np.tile(
-                    np.asarray([0.0, -1.0, 0.0], np.float32), (p, 1))),
-                w_sum=jnp.asarray(r2.uniform(0, 30, p), jnp.float32),
-                M=jnp.asarray(r2.uniform(0, 16, p), jnp.float32),
-                W=jnp.asarray(r2.uniform(0, 25, p), jnp.float32),
-                light_idx=jnp.asarray(idx),
-            )
-            if with_hist:
-                hn = r2.normal(size=(p, 3))
-                hn /= np.linalg.norm(hn, axis=1, keepdims=True)
-                # Half the lanes: history normal close to the surface
-                # normal so the confidence gate passes sometimes.
-                mix = r2.random(p) < 0.5
-                hn = np.where(mix[:, None], np.asarray(n), hn)
-                res = res.replace(
-                    hit_normal=jnp.asarray(hn, jnp.float32),
-                    depth=jnp.asarray(
-                        np.asarray(vdist)
-                        * r2.uniform(0.9, 1.15, p).astype(np.float32)),
-                )
-            return res
-
-        r0 = mk_res(1)
-        h = mk_res(2, with_hist=True)
-        cfg_m, cfg_w = 10.0, 20.0
-
-        idx_cl = jnp.minimum(h.light_idx, L - 1)
-        from sunray_tpu.ops.linalg import gather_vec
-        r_em = gather_vec(lights.emission,
-                          jnp.clip(r0.light_idx, 0, L - 1))
-        h_em = gather_vec(lights.emission, idx_cl)
-        s_k, fields = di_temporal_pallas(
-            seed0,
-            dict(light_pos=r0.light_pos, light_normal=r0.light_normal,
-                 w_sum=r0.w_sum, M=r0.M, light_idx=r0.light_idx, W=r0.W),
-            r_em,
-            dict(light_pos=h.light_pos, light_normal=h.light_normal,
-                 W=h.W, M=h.M, light_idx=idx_cl,
-                 hit_normal=h.hit_normal, depth=h.depth),
-            h_em, ok, pos, n, v, alb, rough, metal, vdist, cfg_m, cfg_w,
-        )
-
-        # jnp reference: the di_temporal_reuse post-gather chain.
-        hh = h.replace(
-            M=jnp.minimum(h.M, cfg_m), W=jnp.minimum(h.W, cfg_w)
-        )
-        ndot = jnp.sum(n * hh.hit_normal, axis=-1)
-        nc = restir.smoothstep(0.9, 0.99, ndot)
-        dd = jnp.abs(vdist - hh.depth) / jnp.maximum(vdist, 1e-4)
-        dc = 1.0 - restir.smoothstep(0.05, 0.20, dd)
-        hh = hh.replace(M=hh.M * (nc * dc))
-        use = ok & (hh.W > 0.0)
-        hh = hh.replace(light_idx=idx_cl)
-        p_hat_hist, _ = lights.eval_p_hat(
-            hh.light_idx, hh.light_pos, hh.light_normal,
-            pos, n, v, alb, rough, metal)
-        seed, u_m = rng_mod.rnd(seed0)
-        rr = restir.merge_di(r0, hh, p_hat_hist, u_m, use)
-        p_hat_merged, _ = lights.eval_p_hat(
-            rr.light_idx, rr.light_pos, rr.light_normal,
-            pos, n, v, alb, rough, metal)
-        w_new = rr.w_sum / jnp.maximum(rr.M * p_hat_merged, 1e-4)
-        rr = rr.replace(W=jnp.where(use, w_new, rr.W))
-
-        np.testing.assert_array_equal(np.asarray(s_k), np.asarray(seed))
-        np.testing.assert_allclose(np.asarray(fields["M"]),
-                                   np.asarray(rr.M), rtol=1e-5, atol=1e-6)
-        np.testing.assert_allclose(np.asarray(fields["w_sum"]),
-                                   np.asarray(rr.w_sum), rtol=5e-4,
-                                   atol=1e-5)
-        same = (np.asarray(fields["light_idx"])
-                == np.asarray(rr.light_idx))
-        assert same.mean() > 0.99, same.mean()
-        np.testing.assert_allclose(
-            np.asarray(fields["W"])[same], np.asarray(rr.W)[same],
-            rtol=3e-3, atol=1e-4)
-        np.testing.assert_allclose(
-            np.asarray(fields["light_pos"])[same],
-            np.asarray(rr.light_pos)[same], rtol=1e-5, atol=1e-6)

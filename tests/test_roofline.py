@@ -1,10 +1,13 @@
 """Pins the analytic HBM-traffic lower bound (utils/roofline.py) — the
-frame-floor arithmetic the perf claims in docs/PERFORMANCE.md rest on."""
+frame-floor arithmetic a roofline share rests on — and its peak table."""
 
 import numpy as np
+import pytest
 
 from sunray_tpu.config import RenderConfig
 from sunray_tpu.utils import roofline as rl
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 def test_stage_set_matches_pipeline():
@@ -42,17 +45,16 @@ def test_postprocess_floor_exact():
 
 
 def test_1080p_floor_magnitude():
-    """The headline number: the full-pipeline 1080p dataflow floor is a
-    few ms on v5e (819 GB/s) — i.e. the measured ~100 ms frame is >20x
-    above the interface-traffic floor, so the frame is NOT at the
-    machine's limit and further structural cuts are legitimate
-    (docs/PERFORMANCE.md roofline section)."""
+    """The headline number: the full-pipeline 1080p dataflow floor moves
+    multiple GB, about a millisecond at the H100's 3.35 TB/s; the report's
+    floor_fraction is floor / measured."""
     cfg = RenderConfig(width=1920, height=1080, lighting="restir")
     stages = rl.frame_traffic_lower_bound(cfg, ris_rounds=2, final_rounds=2)
-    floor = rl.total_floor_ms(stages)
-    assert 2.0 < floor < 10.0, floor
-    rep = rl.roofline_report(cfg, measured_ms=99.86)
-    assert rep["floor_fraction"] < 0.1
+    floor = rl.total_floor_ms(stages, rl.peaks_for(H100).hbm_gbps)
+    assert 0.5 < floor < 2.5, floor
+    rep = rl.roofline_report(cfg, H100, measured_ms=40.0)
+    assert np.isclose(rep["floor_fraction"], rep["floor_ms"] / 40.0,
+                      atol=1e-3)
     assert rep["total_mbytes"] > 1000  # multi-GB traffic even as a bound
 
 
@@ -60,9 +62,26 @@ def test_report_json_roundtrips():
     import json
 
     cfg = RenderConfig(width=480, height=270)
-    rep = rl.roofline_report(cfg, measured_ms=12.3)
+    rep = rl.roofline_report(cfg, H100, measured_ms=12.3)
     js = json.loads(json.dumps(rep))
     assert js["stages"][0]["stage"] == "ris_pass"
     assert np.isclose(
         sum(s["floor_ms"] for s in js["stages"]), js["floor_ms"], atol=0.05
     )
+
+
+def test_peak_table_h100_row():
+    """The H100 row carries the data-sheet rates and its source."""
+    pk = rl.peaks_for(H100)
+    assert (pk.hbm_gbps, pk.f32_tflops, pk.tf32_tflops, pk.bf16_tflops) == (
+        3350.0, 67.0, 495.0, 989.0)
+    assert "data sheet" in pk.source
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", "NVIDIA H200"])
+def test_unknown_device_raises(kind):
+    """A device without a row is an error, never a default peak."""
+    with pytest.raises(ValueError, match="no published peaks"):
+        rl.peaks_for(kind)
+    with pytest.raises(ValueError):
+        rl.roofline_report(RenderConfig(width=64, height=48), kind)

@@ -196,8 +196,7 @@ def test_exchange_rows_roundtrip():
 
 def test_ici_halo_traffic_budget_1080p():
     """Pins the explicit-halo path's per-chip ICI bytes/frame at the
-    reference 1080p/8 configuration (VERDICT r3 item 7: the ~MB/chip
-    claim in SCALING_r03.json was asserted, never computed). The tally
+    reference 1080p/8 configuration. The tally
     counts every ppermute's sent slice at TRACE time (parallel/halo.py
     traffic_tally), so this is the exact collective traffic of the
     compiled program, not an estimate."""
@@ -229,11 +228,10 @@ def test_ici_halo_traffic_budget_1080p():
                            shard_state(state, cfg, mesh)),
                        mats)
     mb = t["bytes"] / 1e6
-    # Measured exactly 27.92 MB/chip/frame across 62 ppermutes
-    # (2026-08-20; corrects SCALING_r03.json's asserted ~13 MB claim,
-    # which was 2.1x low). Bounds at ~15%: a structural change that
-    # grows the collective volume materially must update this pin
-    # consciously. For scale: per-chip HBM frame traffic lower-bounds at
+    # Counted exactly 27.92 MB/chip/frame across 62 ppermutes (a trace-
+    # time count, not a device measurement). Bounds at ~15%: a structural
+    # change that grows the collective volume materially must update this
+    # pin consciously. For scale: per-chip HBM frame traffic lower-bounds at
     # ~3.8 GB (utils/roofline.py) — the halo volume is ~0.7% of it.
     assert t["calls"] > 10, t
     assert 23.0 < mb < 33.0, f"ICI traffic {mb:.2f} MB/chip/frame"
